@@ -1,0 +1,199 @@
+"""SecureServer — Algorithm 1's trust boundary, plus the aggregator
+registry, in PyTorch.
+
+  * ``SecureServer`` owns the TEE ``Enclave``.  At setup it performs the
+    attestation handshake (Step 0) and ingests each client's once-shared
+    sample as a *sealed* blob (Step 1).  Guide data is obtained only by
+    unsealing those blobs, and the unsealed guide batches are cached on
+    the server's device, keyed on the enclave's seal version, so a round
+    pays the unseal cost once, not every round.
+  * The registry maps each aggregation rule name to a strategy with the
+    uniform signature ``fn(U, ctx) -> (delta, logs)``, where ``U`` is the
+    stacked (N, D) update matrix and ``ctx`` an :class:`AggregationContext`.
+
+Steps 4 and 5 of every registered rule go through ``kernels.ops``: on
+the card each round launches the CUDA statistics and masked-mean kernels
+(``diversefl``) or the masked-mean kernel (``oracle``, ``mean``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..core.aggregators import flatten_updates
+from ..core.diversefl import DiverseFLConfig, criterion_logs, guiding_update
+from ..core.tee import Enclave
+from ..device import DeviceLike
+from ..kernels import ops as kops
+from .telemetry import AuditLog
+
+DEFAULT_IDENTITY = "diversefl-enclave-v1"
+
+
+# ----------------------------------------------------------------------
+# Aggregator registry
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AggregationContext:
+    """Everything a registered rule may need beyond the update matrix."""
+    dfl: DiverseFLConfig = DiverseFLConfig()
+    byz_mask: Optional[torch.Tensor] = None     # ground truth (oracle only)
+    guides: Optional[torch.Tensor] = None       # G (N, D), enclave Step 3
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregatorEntry:
+    name: str
+    fn: Callable[[torch.Tensor, AggregationContext],
+                 Tuple[torch.Tensor, Dict]]
+    needs_guides: bool = False                  # requires ctx.guides
+
+
+_REGISTRY: Dict[str, AggregatorEntry] = {}
+
+
+def register_aggregator(name: str, *, needs_guides: bool = False):
+    """Decorator: register ``fn(U, ctx) -> (delta, logs)`` under ``name``."""
+    def deco(fn):
+        if name in _REGISTRY:
+            raise ValueError(f"aggregator {name!r} already registered")
+        _REGISTRY[name] = AggregatorEntry(name, fn, needs_guides)
+        return fn
+    return deco
+
+
+def get_aggregator(name: str) -> AggregatorEntry:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown aggregator {name!r}; "
+                         f"available: {available_aggregators()}") from None
+
+
+def available_aggregators() -> Tuple[str, ...]:
+    """Registered rule names, in registration order."""
+    return tuple(_REGISTRY)
+
+
+def aggregate(name: str, U: torch.Tensor, ctx: AggregationContext):
+    """Dispatch one aggregation: (N, D) updates -> ((D,) delta, logs)."""
+    return get_aggregator(name).fn(U, ctx)
+
+
+@register_aggregator("diversefl", needs_guides=True)
+def _diversefl(U, ctx):
+    """Per-client C1/C2 criteria + masked mean (Eq. 2-6)."""
+    delta, mask, (dot, zz, gg) = kops.diversefl_step45(U, ctx.guides,
+                                                       ctx.dfl)
+    return delta, {"mask": mask, "z_sq": zz, "g_sq": gg,
+                   **criterion_logs(dot, zz, gg)}
+
+
+@register_aggregator("oracle")
+def _oracle(U, ctx):
+    mask = ~ctx.byz_mask
+    return kops.masked_aggregate(U, mask), {"mask": mask}
+
+
+@register_aggregator("mean")
+def _mean(U, ctx):
+    ones = torch.ones((U.shape[0],), dtype=torch.float32, device=U.device)
+    return kops.masked_aggregate(U, ones), {}
+
+
+# ----------------------------------------------------------------------
+# SecureServer
+# ----------------------------------------------------------------------
+
+class SecureServer:
+    """The FL server's enclave-backed aggregation choke point.
+
+    Setup (Steps 0-1): construct -> attestation handshake; then
+    ``ingest_samples`` seals each client's once-shared sample into the
+    enclave.  Training (Steps 3-5): ``guide_batches`` exposes the
+    *unsealed* samples (cached on the device, invalidated whenever the
+    sealed store changes), ``compute_guides`` runs the enclave-side
+    guiding updates, and ``aggregate`` dispatches through the registry.
+    """
+
+    def __init__(self, enclave: Optional[Enclave] = None,
+                 identity: str = DEFAULT_IDENTITY, nonce: int = 0x5ecf1,
+                 device: DeviceLike = None):
+        self.enclave = enclave if enclave is not None \
+            else Enclave(identity, device=device)
+        self.device = self.enclave.device
+        # append-only, hash-chained record of every enclave-side decision:
+        # attestation, seals/drops, guide-cache rebuilds.  Only ids,
+        # counts, versions and measurements are logged.
+        self.audit = AuditLog()
+        quote = self.enclave.attest(nonce)
+        if not Enclave.verify_quote(quote, identity, nonce):
+            raise RuntimeError(
+                f"attestation failed: enclave does not measure as {identity!r}")
+        self.audit.append("attestation", identity=identity, nonce=nonce,
+                          measurement=quote.measurement)
+        self._guide_cache = None             # (seal_version, gx, gy)
+
+    # --- Step 1: sealed-sample ingestion ------------------------------
+    def ingest_samples(self, client_id: int, x, y) -> None:
+        """Seal one client's shared sample M_j⁰ into the enclave."""
+        self.enclave.seal_samples(client_id, x, y)
+        self.audit.append("seal", client=int(client_id),
+                          version=self.enclave.seal_version)
+
+    def drop_client(self, client_id: int) -> None:
+        self.enclave.drop_client(client_id)
+        self.audit.append("drop", client=int(client_id),
+                          version=self.enclave.seal_version)
+
+    # --- unsealed guide batches (cached on the device) ----------------
+    def guide_batches(self, refresh: bool = False):
+        """Guide batches stacked BY CLIENT ID: row j is client j's sample,
+        obtained only by unsealing.  A dropped (or never-ingested) id gets
+        an all-zero row: a zero guiding update fails both C1 (dot = 0) and
+        C2 (‖Δ̃‖ = 0), so such a client never passes the criterion.  The
+        unseal runs once per seal version."""
+        version = self.enclave.seal_version
+        if refresh or self._guide_cache is None \
+                or self._guide_cache[0] != version:
+            ids = self.enclave.client_ids()
+            if not ids:
+                raise RuntimeError(
+                    "SecureServer has no sealed samples — ingest_samples "
+                    "must run before guide_batches")
+            unsealed = {j: self.enclave.unseal_samples(j) for j in ids}
+            zx, zy = (torch.zeros_like(t) for t in unsealed[ids[0]])
+            rows = [unsealed.get(j, (zx, zy)) for j in range(max(ids) + 1)]
+            self._guide_cache = (version,
+                                 torch.stack([r[0] for r in rows]),
+                                 torch.stack([r[1] for r in rows]))
+            self.audit.append("guide_cache_rebuild", version=version,
+                              clients=len(ids))
+        return self._guide_cache[1], self._guide_cache[2]
+
+    # --- Step 3: guiding updates --------------------------------------
+    def compute_guides(self, params, grad_fn, lr, E: int = 1,
+                       select: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Δ̃_j from unsealed samples only — the sole guide-data path.
+
+        ``params`` are the global (unbatched) params; ``grad_fn`` must
+        accept client-batched params.  ``select`` restricts to the round's
+        participating clients (an index tensor).  Returns the flat (C, D)
+        fp32 guide matrix, columns in the layout of
+        ``core.aggregators.flatten_updates``."""
+        gx, gy = self.guide_batches()
+        if select is not None:
+            gx, gy = gx[select], gy[select]
+        c = gx.shape[0]
+        batched = {k: v.unsqueeze(0).expand((c,) + tuple(v.shape))
+                   for k, v in params.items()}
+        guides = guiding_update(batched, (gx, gy), grad_fn, lr, E)
+        return flatten_updates(guides)[0]
+
+    # --- Steps 4-5: criterion + aggregation ---------------------------
+    @staticmethod
+    def aggregate(name: str, U, ctx: AggregationContext):
+        return aggregate(name, U, ctx)

@@ -1,0 +1,98 @@
+// Masked mean of client updates for DiverseFL Step 5 (Eq. 6).
+//
+// Replaces the TPU kernel src/repro/kernels/masked_agg.py:84
+// `masked_agg_kernel` (Pallas).  For the (N, D) fp32 update matrix U and
+// an (N,) weight vector w (the bool keep mask, or fp32 weights) it
+// computes, per column c,
+//
+//     s_c = acc_c + sum_i w_i * U[i, c]      (i = 0 .. N-1, in client order)
+//     out_c = normalize ? s_c / max(sum_i w_i, 1) : s_c
+//
+// With w the 0/1 keep mask and normalize = 1 this is Eq. 6, and an empty
+// mask gives exactly 0.  The kernel reads the bool mask itself, so Eq. 6
+// is one launch.  The optional accumulator `acc` (nullptr = 0) with fp32
+// weights and normalize = 0 is the streaming fold acc + sum_i w_i u_i that
+// the TPU's `masked_agg_update_kernel` computes, so a later slice can
+// reuse this entry point.
+//
+// Bound: HBM bytes.  U is read once (N*D*4 bytes), the output written
+// once; 2 flops per element of U.
+//
+// Design: one thread per output column.  Each thread walks the clients in
+// order, so reads along D are coalesced, there are no atomics, and the
+// result is deterministic: for 0/1 weights it is bit for bit the strict
+// left fold of core/diversefl.masked_sum_fold followed by one division.
+// Every thread also sums the weights in the same order (w is a broadcast
+// read that stays in L1), which avoids a separate pass for the
+// denominator.
+//
+// Left for a later PR: at the paper's D = 7,850 the grid has only 31
+// blocks of 256 threads, so most SMs idle.  At N = 23 the call is
+// launch-bound anyway, but a deep client axis (N = 1,024) makes each
+// thread walk 1,024 rows in sequence, far from the byte bound.  Smaller
+// blocks and float4 columns would spread D over more SMs; splitting the
+// client loop over blocks would need a second fixed-order pass to stay
+// deterministic.
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float weight(bool m) { return m ? 1.f : 0.f; }
+__device__ __forceinline__ float weight(float w) { return w; }
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+    masked_agg_kernel(const float* __restrict__ u, const W* __restrict__ w,
+                      const float* __restrict__ acc, float* __restrict__ out,
+                      int64_t n, int64_t d, int normalize) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (c >= d) return;
+  float s = acc != nullptr ? acc[c] : 0.f;
+  float total = 0.f;
+#pragma unroll 4
+  for (int64_t i = 0; i < n; ++i) {
+    const float wi = weight(w[i]);
+    s = fmaf(__ldg(u + i * d + c), wi, s);
+    total += wi;
+  }
+  if (normalize) s /= fmaxf(total, 1.f);
+  out[c] = s;
+}
+
+}  // namespace
+
+extern "C" {
+
+// u: (n, d) fp32 contiguous; w: (n,) bool (w_is_bool = 1) or fp32
+// (w_is_bool = 0); acc: (d,) fp32 or nullptr; out: (d,) fp32.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
+int masked_agg_f32(const void* u, const void* w, int w_is_bool,
+                   const void* acc, void* out, int64_t n, int64_t d,
+                   int normalize, void* stream) {
+  if (d > 0) {
+    const unsigned int blocks =
+        static_cast<unsigned int>((d + kThreads - 1) / kThreads);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* uf = static_cast<const float*>(u);
+    const float* af = static_cast<const float*>(acc);
+    float* of = static_cast<float*>(out);
+    if (w_is_bool) {
+      masked_agg_kernel<bool><<<blocks, kThreads, 0, st>>>(
+          uf, static_cast<const bool*>(w), af, of, n, d, normalize);
+    } else {
+      masked_agg_kernel<float><<<blocks, kThreads, 0, st>>>(
+          uf, static_cast<const float*>(w), af, of, n, d, normalize);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* masked_agg_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"
