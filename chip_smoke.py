@@ -5,21 +5,36 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-  1. device  - the card's name and power limit (nvidia-smi), torch/CUDA
+  1. device  - the card's name and power limit (nvidia-smi), torch/CUDA;
+               TF32 off for matmuls and cuDNN convolutions, so every
+               comparison on the card is in full fp32
   2. build   - nvcc builds the CUDA kernels from src/repro_torch/kernels/csrc
-  3. kernels - each kernel against its plain PyTorch version on the card at
-               (23, 7850), (23, 199210), (1024, 7850), (23, 16411), with
-               bool, fp32 and all-false masks; bitwise repeatability;
-               CUDA-event timings of kernel, plain version and one PyTorch
-               library call
-  4. train   - the paper's configuration (softmax regression, 23 clients,
-               f = 5, 60 rounds): diversefl/oracle under sign_flip and
-               diversefl/mean under gaussian, with the reference's accuracy
-               and detection bars and the kernels' launch counts; then the
-               card's rounds against the CPU's on injected draws
-  5. result  - a ``kernels`` JSON line, then ``{"ok": true, ...}`` last
+  3. kernels - slice 1: the similarity and masked-mean kernels against
+               their plain PyTorch versions at (23, 7850), (23, 199210),
+               (1024, 7850), (23, 16411) and the small CNN's and VGG-11's
+               widths (23, 117706), (23, 28146762), with bool, fp32 and
+               all-false masks; bitwise repeatability; CUDA-event timings
+               of kernel, plain version and one PyTorch library call, with
+               inputs cold (read from HBM, as the byte bound assumes) and
+               warm (L2-resident where they fit).  Slice 2: the weighted
+               fold at those shapes, and the median/trimmed-mean kernel at
+               (23, 7850), (23, 199210), (24, 7850), (64, 7850),
+               (23, 28146762) with f in {0, 5} and exact ties, timed likewise
+  4. train   - slice 1: the paper's configuration (softmax regression, 23
+               clients, f = 5, 60 rounds): diversefl/oracle under sign_flip
+               and diversefl/mean under gaussian, with the reference's
+               accuracy and detection bars and the kernels' launch counts;
+               then the card's rounds against the CPU's on injected draws
+  5. slice 2 - Fig. 4 on the 3-NN at D = 199,210 (the 4 x 3 grid of rules
+               and attacks, 40 rounds, the reference's label-flip bar, the
+               other baselines once each, launch counts), Fig. 5's small
+               CNN, two VGG-11 rounds of diversefl and fltrust at
+               D = 28,146,762, and fltrust/median rounds on the card
+               against the CPU's on injected draws
+  6. result  - a ``kernels`` JSON line, then ``{"ok": true, ...}`` last
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -33,23 +48,35 @@ import torch  # noqa: E402
 
 from repro_torch.core.attacks import AttackConfig  # noqa: E402
 from repro_torch.core.diversefl import masked_sum_fold  # noqa: E402
-from repro_torch.data import (FederatedData, make_mnist_like,  # noqa: E402
-                              partition_sorted_shards)
+from repro_torch.data import (FederatedData, make_cifar_like,  # noqa: E402
+                              make_mnist_like, partition_sorted_shards)
 from repro_torch.fl import (FLConfig, Federation,  # noqa: E402
-                            make_round_body, run_federated_training,
-                            softmax_regression)
+                            make_round_body, mlp3, run_federated_training,
+                            small_cnn, softmax_regression, vgg11)
+from repro_torch.fl.server import (AggregationContext,  # noqa: E402
+                                   aggregate)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.masked_agg import (masked_agg_cuda,  # noqa: E402
-                                            masked_agg_plain)
+                                            masked_agg_plain,
+                                            masked_agg_update_cuda,
+                                            masked_agg_update_plain)
+from repro_torch.kernels.robust_agg import (robust_agg_cuda,  # noqa: E402
+                                            robust_agg_plain)
 from repro_torch.kernels.similarity import (similarity_cuda,  # noqa: E402
                                             similarity_plain)
 from repro_torch.optim import inv_sqrt_lr  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+L2_BYTES = 50 * 2 ** 20          # H100 SXM L2
+COLD_BYTES = 4 * L2_BYTES        # a cold timing cycles over this many bytes
 MAIN_SHAPE = (23, 7850)          # 23 clients x softmax regression's D
 SEED = 0                         # the training runs' draws (see detection_scan)
-SHAPES = [MAIN_SHAPE, (23, 199210), (1024, 7850), (23, 16411)]
+# the update widths of the models the slices train: the 3-NN (784-200-
+# 200-10), the Appendix-C small CNN and VGG-11
+D_MLP3, D_SMALL_CNN, D_VGG11 = 199_210, 117_706, 28_146_762
+SHAPES = [MAIN_SHAPE, (23, D_MLP3), (1024, 7850), (23, 16411),
+          (23, D_SMALL_CNN), (23, D_VGG11)]
 KERNEL_META = {
     "similarity_stats": {
         "source": "src/repro_torch/kernels/csrc/similarity.cu",
@@ -57,38 +84,84 @@ KERNEL_META = {
     "masked_aggregate": {
         "source": "src/repro_torch/kernels/csrc/masked_agg.cu",
         "replaces": "src/repro/kernels/masked_agg.py:84"},
+    "masked_agg_update": {
+        "source": "src/repro_torch/kernels/csrc/masked_agg.cu",
+        "replaces": "src/repro/kernels/masked_agg.py:47"},
+    "robust_aggregate": {
+        "source": "src/repro_torch/kernels/csrc/robust_agg.cu",
+        "replaces": "src/repro/kernels/robust_agg.py:55"},
 }
+S2_SHAPE = (23, D_MLP3)          # the weighted fold's shape in Fig. 4
+ROBUST_SHAPES = [(23, 7850), S2_SHAPE, (24, 7850), (64, 7850), (23, D_VGG11)]
+F_BUDGET = 5                     # f of the paper's 23-client runs
+FIG4_SCHEMES = ("oracle", "diversefl", "median", "fltrust")
+FIG4_ATTACKS = ("gaussian", "sign_flip", "label_flip")
+OTHER_BASELINES = ("trimmed_mean", "krum", "bulyan", "resampling")
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters=200, warmup=20):
-    """(device ms, host-inclusive ms) per call of ``fn``.
+def cuda_ms(fn, sets, iters=200, warmup=20):
+    """(device ms, host-inclusive ms) per call; call i is
+    ``fn(*sets[i % len(sets)])``.
 
     Device: CUDA events around ``iters`` calls enqueued while a sleep
     kernel holds the stream, so the calls run back to back on the card
     and the Python wrapper's host time is hidden.  Host-inclusive: wall
     clock per call of a synchronised loop, what one call costs an eager
-    round.  Both warm, with inputs resident in L2 where they fit."""
-    for _ in range(warmup):
-        fn()
+    round.  With one input set the inputs stay in L2 where they fit
+    (warm); with :func:`cold_sets` every call reads them from HBM."""
+    k = len(sets)
+    for i in range(warmup):
+        fn(*sets[i % k])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(warmup):
-        fn()
+    for i in range(warmup):
+        fn(*sets[i % k])
     torch.cuda.synchronize()
     host_s = (time.perf_counter() - t0) / warmup
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(2e9 * (1.5 * host_s * iters + 1e-3)))
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(*sets[i % k])
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters, host_s * 1e3
+
+
+def cold_sets(*tensors):
+    """Copies of ``tensors``, enough that cycling through them touches
+    COLD_BYTES (4x the L2) between two uses of one copy: each call then
+    reads its inputs from HBM, the memory the byte bound assumes."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    k = max(1, math.ceil(COLD_BYTES / nbytes))
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(k - 1)]
+
+
+def time_kernel(card, name, shape, fns, inputs, bound, err, iters=200,
+                warmup=20):
+    """Device times of a kernel, its plain version and the library call,
+    ``fns``, each called on ``inputs``: warm (one input set, L2-resident
+    where it fits) and cold (cycling over :func:`cold_sets`).  The cold
+    readings pair with the HBM ``bound`` and go into the JSON line."""
+    warm, cold = [inputs], cold_sets(*inputs)
+    (ms, host), (p_ms, p_host), (l_ms, _) = (
+        cuda_ms(f, cold, iters, warmup) for f in fns)
+    w_ms, w_p, w_l = (cuda_ms(f, warm, iters, warmup)[0] for f in fns)
+    del cold
+    log(f"[kernels] {name} {shape}: device kernel {ms * 1e3:.2f} us cold "
+        f"/ {w_ms * 1e3:.2f} us warm, plain {p_ms * 1e3:.2f} / "
+        f"{w_p * 1e3:.2f} us, library {l_ms * 1e3:.2f} / {w_l * 1e3:.2f} "
+        f"us, bound {bound[0] * 1e3:.3f} us ({bound[1]}, HBM); per call "
+        f"with host kernel {host * 1e3:.2f} us, plain {p_host * 1e3:.2f} "
+        f"us; max |err| {err:.3g} [{card}]")
+    return dict(ms=ms, plain_ms=p_ms, library_ms=l_ms, bound=bound,
+                max_abs_err=err, warm_ms=w_ms)
 
 
 def bound_ms(nbytes, flops):
@@ -186,37 +259,31 @@ def phase_kernels(card):
             log(f"[kernels] masked_aggregate == masked_sum_fold / max(Σm, 1) "
                 f"bitwise at {MAIN_SHAPE}, bool and fp32 0/1 masks")
 
-        S = torch.stack([z, g], dim=1)                    # (n, 2, d)
         w = mask.to(torch.float32)
         w = w / w.sum().clamp_min(1.0)
-        sim_bytes = 2 * n * d * 4 + n * 3 * 4
-        agg_bytes = n * d * 4 + n + d * 4                 # bool mask in
-        calls = {
-            "similarity_stats": (
-                lambda: similarity_cuda(z, g), lambda: similarity_plain(z, g),
-                lambda: torch.bmm(S, S.transpose(1, 2)),
-                bound_ms(sim_bytes, 6 * n * d), err_s),
-            "masked_aggregate": (
-                lambda: masked_agg_cuda(z, mask),
-                lambda: masked_agg_plain(z, mask),
-                lambda: torch.mv(z.T, w),
-                bound_ms(agg_bytes, 2 * n * d), err_m),
-        }
-        t = {}
-        for name, (kern, plain, lib, bound, err) in calls.items():
-            (ms, host), (p_ms, p_host), (l_ms, _) = (cuda_ms(kern),
-                                                     cuda_ms(plain),
-                                                     cuda_ms(lib))
-            t[name] = dict(ms=ms, plain_ms=p_ms, library_ms=l_ms,
-                           bound=bound, max_abs_err=err)
-            log(f"[kernels] {name} ({n}, {d}): device kernel {ms * 1e3:.2f} "
-                f"us, plain {p_ms * 1e3:.2f} us, library {l_ms * 1e3:.2f} us,"
-                f" bound {bound[0] * 1e3:.3f} us ({bound[1]}); per call with "
-                f"host kernel {host * 1e3:.2f} us, plain {p_host * 1e3:.2f} "
-                f"us; max |err| {err:.3g} [{card}]")
+        iters, warm = (20, 3) if d == D_VGG11 else (200, 20)
+        t = {"similarity_stats": time_kernel(
+            card, "similarity_stats", (n, d),
+            (lambda z, g, S: similarity_cuda(z, g),
+             lambda z, g, S: similarity_plain(z, g),
+             lambda z, g, S: torch.bmm(S, S.transpose(1, 2))),
+            (z, g, torch.stack([z, g], dim=1)),
+            bound_ms(2 * n * d * 4 + n * 3 * 4, 6 * n * d), err_s,
+            iters, warm)}
+        del g
+        t["masked_aggregate"] = time_kernel(
+            card, "masked_aggregate", (n, d),
+            (lambda z, mask, w: masked_agg_cuda(z, mask),
+             lambda z, mask, w: masked_agg_plain(z, mask),
+             lambda z, mask, w: torch.mv(z.T, w)), (z, mask, w),
+            bound_ms(n * d * 4 + n + d * 4, 2 * n * d), err_m,   # bool mask
+            iters, warm)
         rows[(n, d)] = t
+        del z
+        torch.cuda.empty_cache()
     log("[kernels] every kernel agrees with its plain version, repeats "
-        "bitwise, and maps an all-false mask to exactly 0")
+        "bitwise, and maps an all-false mask to exactly 0, at every model "
+        "width up to VGG-11's")
     return rows[MAIN_SHAPE]
 
 
@@ -295,9 +362,9 @@ def phase_train():
     assert h_dfg["final_acc"] > h_mean["final_acc"] + 0.3, \
         (h_dfg["final_acc"], h_mean["final_acc"])
     for c in (main_counts, c_dfg):
-        assert c == {"similarity_stats": 60, "masked_aggregate": 60}, c
+        assert c == expected_counts("diversefl", 60), c
     for c in (c_orc, c_mean):
-        assert c == {"similarity_stats": 0, "masked_aggregate": 60}, c
+        assert c == expected_counts("oracle", 60), c
     log("[train] accuracy and detection bars met; every diversefl round "
         "launched both CUDA kernels")
     return main_counts
@@ -340,6 +407,323 @@ def phase_card_vs_cpu():
         f"|err| {err:.3g}")
 
 
+# ----------------------------------------------------------------------
+# slice 2: the weighted fold and the median/trimmed-mean kernel
+# ----------------------------------------------------------------------
+
+def oddeven_pairs(n):
+    """Compare-swaps of an odd-even transposition network of n passes."""
+    return sum(len(range(it % 2, n - 1, 2)) for it in range(n))
+
+
+def check_update(u, w, acc):
+    """The weighted fold against its plain left fold: real weights round
+    differently under the kernel's fmaf, so within
+    1e-5 * (|acc| + Σ|wᵢuᵢ|) + 1e-7; bitwise repeatable; acc untouched."""
+    acc0 = acc.clone()
+    out = masked_agg_update_cuda(u, w, acc)
+    again = masked_agg_update_cuda(u, w, acc)
+    torch.cuda.synchronize()
+    ref = masked_agg_update_plain(u, w, acc)
+    scale = acc.abs() + torch.mv(u.abs().T, w.abs())
+    err = (out - ref).abs()
+    if not bool((err <= 1e-5 * scale + 1e-7).all()):
+        raise AssertionError(f"masked_agg_update disagrees at "
+                             f"{tuple(u.shape)}: max |err| "
+                             f"{err.max().item()}")
+    if not torch.equal(out, again):
+        raise AssertionError(f"masked_agg_update not bitwise repeatable at "
+                             f"{tuple(u.shape)}")
+    if not torch.equal(acc, acc0):
+        raise AssertionError("masked_agg_update modified acc")
+    return err.max().item()
+
+
+def check_robust(u, f):
+    """The median/trimmed kernel against its plain version: the median
+    bitwise (and equal to the registry's median rule), the trimmed mean
+    within 1e-5 * max|u| + 1e-7 per column (the same admitted values,
+    summed in another order); bitwise repeatable."""
+    med, trim = robust_agg_cuda(u, f)
+    med2, trim2 = robust_agg_cuda(u, f)
+    torch.cuda.synchronize()
+    p_med, p_trim = robust_agg_plain(u, f)
+    rule, _ = aggregate("median", u, AggregationContext(f=f))
+    if not (torch.equal(med, p_med) and torch.equal(med, rule)):
+        raise AssertionError(f"robust_aggregate median differs at "
+                             f"{tuple(u.shape)} f={f}: max |err| "
+                             f"{(med - p_med).abs().max().item()}")
+    err = (trim - p_trim).abs()
+    if not bool((err <= 1e-5 * u.abs().amax(0) + 1e-7).all()):
+        raise AssertionError(f"robust_aggregate trimmed mean disagrees at "
+                             f"{tuple(u.shape)} f={f}: max |err| "
+                             f"{err.max().item()}")
+    if not (torch.equal(med, med2) and torch.equal(trim, trim2)):
+        raise AssertionError(f"robust_aggregate not bitwise repeatable at "
+                             f"{tuple(u.shape)} f={f}")
+    return err.max().item()
+
+
+def with_ties(u, sigma=10.0):
+    """Exact ties as the same_value attack makes them: two clients send
+    the constant sigma, two more repeat client 0, and the first 64
+    columns are constant."""
+    u[1] = sigma
+    u[-1] = sigma
+    u[2] = u[0]
+    u[3] = u[0]
+    u[:, :64] = 0.5
+    return u
+
+
+def phase_kernels_s2(card):
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rows = {}
+    for n, d in SHAPES:
+        u = torch.randn((n, d), generator=gen, device="cuda")
+        w = torch.rand((n,), generator=gen, device="cuda") * 2.0
+        acc = torch.randn((d,), generator=gen, device="cuda")
+        err = check_update(u, w, acc)
+        zero = masked_agg_update_cuda(u, torch.zeros_like(w), acc)
+        if not torch.equal(zero, acc):
+            raise AssertionError(f"all-zero weights do not return acc at "
+                                 f"{(n, d)}")
+        if (n, d) == MAIN_SHAPE:
+            m = (w > 1.0).to(torch.float32)       # exact 0/1 products
+            if not torch.equal(masked_agg_update_cuda(u, m, acc),
+                               masked_agg_update_plain(u, m, acc)):
+                raise AssertionError("masked_agg_update is not bitwise the "
+                                     "left fold for 0/1 weights")
+        rows[("masked_agg_update", n, d)] = (u, w, acc, err)
+        log(f"[kernels] masked_agg_update ({n}, {d}): agrees with the left "
+            f"fold (max |err| {err:.3g}), repeats bitwise, zero weights "
+            f"return acc")
+        del u, w, acc, zero
+    for n, d in ROBUST_SHAPES:
+        errs = []
+        for ties in (False, True):
+            u = torch.randn((n, d), generator=gen, device="cuda")
+            if ties:
+                u = with_ties(u)
+            for f in (0, 5):
+                errs.append(check_robust(u, f))
+        log(f"[kernels] robust_aggregate ({n}, {d}): median equal to the "
+            f"plain version and the median rule, trimmed mean max |err| "
+            f"{max(errs):.3g}, f in (0, 5), with and without ties")
+        rows[("robust_aggregate", n, d)] = max(errs)
+        del u
+    torch.cuda.empty_cache()
+
+    # timings: the Fig. 4 shape for both kernels, VGG-11's for the fold
+    timed = {}
+    for n, d in (S2_SHAPE, (23, D_VGG11)):
+        u = torch.randn((n, d), generator=gen, device="cuda")
+        w = torch.rand((n,), generator=gen, device="cuda") * 2.0
+        acc = torch.randn((d,), generator=gen, device="cuda")
+        big = d == D_VGG11
+        iters, warm = (20, 3) if big else (200, 20)
+        timed[("masked_agg_update", n, d)] = time_kernel(
+            card, "masked_agg_update", (n, d),
+            (masked_agg_update_cuda, masked_agg_update_plain,
+             lambda u, w, acc: torch.addmv(acc, u.T, w)), (u, w, acc),
+            bound_ms(n * d * 4 + n * 4 + 2 * d * 4, 2 * n * d),
+            check_update(u, w, acc), iters, warm)
+        if not big:
+            pairs = oddeven_pairs(n)
+            timed[("robust_aggregate", n, d)] = time_kernel(
+                card, "robust_aggregate", (n, d),
+                (lambda u: robust_agg_cuda(u, F_BUDGET),
+                 lambda u: robust_agg_plain(u, F_BUDGET),
+                 lambda u: torch.median(u, 0)), (u,),
+                bound_ms(n * d * 4 + 2 * d * 4, d * (4 * pairs + 7 * n)),
+                check_robust(u, F_BUDGET))
+        del u, w, acc
+    torch.cuda.empty_cache()
+    log("[kernels] slice 2: both kernels agree with their plain versions "
+        "at every shape and repeat bitwise")
+    return {name: timed[(name,) + S2_SHAPE]
+            for name in ("masked_agg_update", "robust_aggregate")}
+
+
+# ----------------------------------------------------------------------
+# slice 2: the paper's baselines and neural-network models
+# ----------------------------------------------------------------------
+
+def expected_counts(aggregator, rounds):
+    """Kernel launches a run of ``rounds`` rounds must show."""
+    c = dict.fromkeys(ops.KERNELS, 0)
+    if aggregator == "diversefl":
+        c["similarity_stats"] = c["masked_aggregate"] = rounds
+    elif aggregator in ("oracle", "mean"):
+        c["masked_aggregate"] = rounds
+    elif aggregator == "fltrust":
+        c["masked_agg_update"] = rounds
+    return c
+
+
+def fl_run(model, data, tx, ty, aggregator, attack, rounds, lr0=0.05,
+           seed=SEED, tag=""):
+    """One run through the normal entry points, with the launch counts
+    set to 0 just before it and read just after."""
+    cfg = FLConfig(rounds=rounds, aggregator=aggregator, attack=attack,
+                   batch_size=50, l2=0.0005, eval_every=rounds, seed=seed)
+    fed = Federation.create(
+        model, data, tx, ty, cfg,
+        torch.Generator(device="cuda").manual_seed(100 + seed))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    h = run_federated_training(model, fed, cfg, inv_sqrt_lr(lr0))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / rounds
+    counts = ops.launch_counts()
+    if counts != expected_counts(aggregator, rounds):
+        raise AssertionError(f"{tag} {aggregator}: launches {counts}, "
+                             f"expected {expected_counts(aggregator, rounds)}")
+    if not all(bool(torch.isfinite(v).all()) for v in h["params"].values()):
+        raise AssertionError(f"{tag} {aggregator}: non-finite params")
+    return h, ms, counts
+
+
+def mnist_federation():
+    x, y = make_mnist_like(torch.Generator(device="cuda").manual_seed(0),
+                           4600)
+    tx, ty = make_mnist_like(torch.Generator(device="cuda").manual_seed(9),
+                             800)
+    return FederatedData.from_partitions(partition_sorted_shards(x, y, 23),
+                                         10), tx, ty
+
+
+def cifar_federation():
+    x, y = make_cifar_like(torch.Generator(device="cuda").manual_seed(0),
+                           2300)
+    tx, ty = make_cifar_like(torch.Generator(device="cuda").manual_seed(9),
+                             500)
+    return FederatedData.from_partitions(partition_sorted_shards(x, y, 23),
+                                         10), tx, ty
+
+
+def phase_fig4(card):
+    """Fig. 4 at the paper's width: the 3-NN (D = 199,210), 23 sorted-shard
+    clients, f = 5, batch 50, inv_sqrt_lr(0.05), l2 = 0.0005, 40 rounds."""
+    data, tx, ty = mnist_federation()
+    model = mlp3()
+    fl_run(model, data, tx, ty, "fltrust", AttackConfig(kind="sign_flip"),
+           3)                                                    # warm-up
+    grid = {}
+    main_counts = None
+    for attack in FIG4_ATTACKS:
+        acfg = AttackConfig(kind=attack, sigma=10.0)
+        for scheme in FIG4_SCHEMES:
+            h, ms, counts = fl_run(model, data, tx, ty, scheme, acfg, 40,
+                                   tag="fig4")
+            grid[(attack, scheme)] = (h["final_acc"], ms)
+            if (scheme, attack) == ("fltrust", "sign_flip"):
+                main_counts = counts          # slice 2's main path
+            log(f"[fig4] 3-NN {attack:10s} {scheme:9s} acc "
+                f"{h['final_acc']:.4f} {ms:.3f} ms/round launches "
+                f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+    log("[fig4] accuracy grid (40 rounds), rows attack, columns "
+        + " / ".join(FIG4_SCHEMES) + ":")
+    for attack in FIG4_ATTACKS:
+        log(f"[fig4]   {attack:10s} " + "  ".join(
+            f"{grid[(attack, s)][0]:.4f} ({grid[(attack, s)][1]:.2f} ms)"
+            for s in FIG4_SCHEMES))
+    for scheme in OTHER_BASELINES:
+        h, ms, _ = fl_run(model, data, tx, ty, scheme,
+                          AttackConfig(kind="sign_flip", sigma=10.0), 40,
+                          tag="fig4")
+        if not np.isfinite(h["final_acc"]):
+            raise AssertionError(f"{scheme}: accuracy {h['final_acc']}")
+        log(f"[fig4] 3-NN sign_flip  {scheme:12s} acc {h['final_acc']:.4f} "
+            f"{ms:.3f} ms/round, no kernel launched [{card}]")
+    # the reference's bar (tests/test_system.py::test_nn_training_mlp)
+    h, ms, _ = fl_run(model, data, tx, ty, "diversefl",
+                      AttackConfig(kind="label_flip"), 50, tag="bar")
+    log(f"[fig4] bar: diversefl label_flip 50 rounds acc "
+        f"{h['final_acc']:.4f} TPR {h['mask_tpr'][-1]} FPR "
+        f"{h['mask_fpr'][-1]} {ms:.3f} ms/round [{card}]")
+    if not (h["final_acc"] > 0.85 and h["mask_tpr"][-1] >= 0.8):
+        raise AssertionError(f"3-NN label_flip bar missed: acc "
+                             f"{h['final_acc']}, TPR {h['mask_tpr'][-1]}")
+    return main_counts
+
+
+def phase_fig5(card):
+    """Fig. 5: the Appendix-C small CNN on 2,300 CIFAR-like samples, 25
+    rounds, lr0 0.08, under sign_flip."""
+    data, tx, ty = cifar_federation()
+    model = small_cnn()
+    fl_run(model, data, tx, ty, "oracle", AttackConfig(kind="sign_flip"), 2,
+           lr0=0.08)                                             # warm-up
+    for scheme in ("oracle", "diversefl", "median"):
+        h, ms, _ = fl_run(model, data, tx, ty, scheme,
+                          AttackConfig(kind="sign_flip", sigma=10.0), 25,
+                          lr0=0.08, tag="fig5")
+        log(f"[fig5] small CNN sign_flip {scheme:9s} acc "
+            f"{h['final_acc']:.4f} {ms:.3f} ms/round [{card}]")
+
+
+def phase_vgg11(card):
+    """VGG-11 at its full width (D = 28,146,762): two rounds each of
+    diversefl and fltrust on 23 CIFAR-like clients."""
+    data, tx, ty = cifar_federation()
+    model = vgg11()
+    fl_run(model, data, tx, ty, "fltrust", AttackConfig(kind="sign_flip"), 1,
+           tag="vgg11")                    # warm-up: cuDNN's first calls
+    for scheme in ("diversefl", "fltrust"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        h, ms, counts = fl_run(model, data, tx, ty, scheme,
+                               AttackConfig(kind="sign_flip", sigma=10.0), 2,
+                               tag="vgg11")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[vgg11] {scheme:9s} 2 rounds: {ms:.1f} ms/round (after a "
+            f"1-round warm-up), acc {h['final_acc']:.4f}, "
+            f"launches { {k: v for k, v in counts.items() if v} }, peak "
+            f"{peak:.2f} GiB, params finite [{card}]")
+
+
+def phase_card_vs_cpu_s2():
+    """Five rounds each of fltrust (under sign_flip) and median on the
+    3-NN, on the card and on the CPU from the same minibatch and root ids:
+    params within atol 1e-5 / rtol 1e-4, TF32 off."""
+    rng = np.random.default_rng(17)
+    data, tx, ty = mnist_federation()
+    model = mlp3()
+    init = model.init(torch.Generator().manual_seed(3), "cpu")
+    for scheme in ("fltrust", "median"):
+        cfg = FLConfig(rounds=5, aggregator=scheme, l2=0.0005,
+                       attack=AttackConfig(kind="sign_flip"), batch_size=50)
+        n_total = data.n_clients * data.per_client
+        root = torch.from_numpy(rng.choice(
+            n_total, max(1, int(cfg.root_frac * n_total)), replace=False))
+        enc = torch.from_numpy(np.stack([
+            rng.choice(data.per_client, data.sample_size(cfg.sample_frac),
+                       replace=False) for _ in range(data.n_clients)]))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            fed = Federation.create(model, data, tx, ty, cfg, device=dev,
+                                    enclave_idx=enc, root_idx=root)
+            body = make_round_body(model, fed, cfg)
+            params = {k: v.to(dev) for k, v in init.items()}
+            draw = np.random.default_rng(11)
+            with torch.no_grad():
+                for i in range(1, cfg.rounds + 1):
+                    idx = torch.from_numpy(draw.integers(
+                        0, data.per_client, (data.n_clients, cfg.batch_size)))
+                    params, _ = body(params, inv_sqrt_lr(0.05)(i),
+                                     batch_idx=idx)
+            runs[dev] = {k: v.cpu() for k, v in params.items()}
+        for k in runs["cpu"]:
+            torch.testing.assert_close(runs["cuda"][k], runs["cpu"][k],
+                                       atol=1e-5, rtol=1e-4)
+        err = max((runs["cuda"][k] - runs["cpu"][k]).abs().max().item()
+                  for k in runs["cpu"])
+        log(f"[train] card vs CPU, 3-NN {scheme}, 5 injected rounds: params "
+            f"max |err| {err:.3g} (TF32 off)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -348,8 +732,17 @@ def main():
     card = phase_device()
     phase_build()
     timings = phase_kernels(card)
+    timings.update(phase_kernels_s2(card))
     counts = phase_train()
     phase_card_vs_cpu()
+    # slice 2's main path: Fig. 4's fltrust run (the median run and the
+    # other baselines launch no kernel: the reference leaves them to XLA)
+    counts_s2 = phase_fig4(card)
+    counts.update({k: counts_s2[k] for k in ("masked_agg_update",
+                                             "robust_aggregate")})
+    phase_fig5(card)
+    phase_vgg11(card)
+    phase_card_vs_cpu_s2()
     kernels = []
     for name, meta in KERNEL_META.items():
         r = timings[name]

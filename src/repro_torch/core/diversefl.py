@@ -19,7 +19,7 @@ here as their plain versions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -91,16 +91,19 @@ def guiding_update(params: Params, guide_batch, grad_fn: Callable, lr,
 # Aggregation (Eq. 6)
 # ----------------------------------------------------------------------
 
-def masked_sum_fold(U: torch.Tensor, w: torch.Tensor
+def masked_sum_fold(U: torch.Tensor, w: torch.Tensor,
+                    acc: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ordered weighted sum over the client axis: a strict left fold,
-    client 0 first, one ``s + u_i * w_i`` per client.  Fixing the
-    association makes Eq. 6's bits independent of how the client axis is
-    executed; the CUDA masked-mean kernel walks the clients in the same
-    order.  Returns ``(sum (D,), total weight)`` in fp32."""
+    client 0 first, one ``s + u_i * w_i`` per client, starting from
+    ``acc`` (default zeros; never modified).  Fixing the association
+    makes Eq. 6's bits independent of how the client axis is executed;
+    the CUDA masked-mean kernel walks the clients in the same order.
+    Returns ``(sum (D,), total weight)`` in fp32."""
     U = U.to(torch.float32)
     w = w.to(torch.float32)
-    s = torch.zeros(U.shape[1:], dtype=torch.float32, device=U.device)
+    s = acc.to(torch.float32) if acc is not None else \
+        torch.zeros(U.shape[1:], dtype=torch.float32, device=U.device)
     n = torch.zeros((), dtype=torch.float32, device=U.device)
     for i in range(U.shape[0]):
         s = s + U[i] * w[i]

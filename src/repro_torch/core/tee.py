@@ -107,3 +107,19 @@ class Enclave:
         self._store.pop(client_id, None)
         self._meta.pop(client_id, None)
         self.seal_version += 1
+
+    # --- throughput model (Fig. 9 / Sec. IV-D) -------------------------
+    @staticmethod
+    def max_clients(guide_flops: float, client_step_seconds: float,
+                    tee_flops_per_s: float = 50e9,
+                    model_bytes: int = 0) -> int:
+        """How many clients one enclave supports without stalling training:
+        the TEE processes clients sequentially (SGX memory limits), so it
+        needs N * t_guide <= t_client.  Models fall off a cliff when the
+        model doesn't fit EPC (paper: VGG-11 ~3x slowdown)."""
+        t_guide = guide_flops / tee_flops_per_s
+        if model_bytes > EPC_BYTES:
+            t_guide *= 3.0          # paging overhead regime
+        if t_guide <= 0:
+            return 10 ** 9
+        return max(1, int(client_step_seconds / t_guide))

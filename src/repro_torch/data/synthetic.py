@@ -1,6 +1,7 @@
-"""Synthetic stand-ins for MNIST (no dataset download): each class is its
-own random template plus noise, so the task is learnable (linear models
-reach high accuracy, like on MNIST) and label-flip and backdoor attacks
+"""Synthetic stand-ins for MNIST and CIFAR-10 (no dataset download): each
+class is its own random template plus noise, so the task is learnable
+(linear models reach high accuracy, like on MNIST) and label-flip and
+backdoor attacks
 behave as in the paper.  The construction is the reference's; the draws
 come from a ``torch.Generator`` and land on that generator's device.
 """
@@ -31,3 +32,11 @@ def make_mnist_like(generator: torch.Generator, n: int = 6900,
                     n_classes: int = 10):
     x, y = make_classification(generator, n, n_classes, 28 * 28, noise=0.5)
     return x.reshape(n, 28, 28), y
+
+
+def make_cifar_like(generator: torch.Generator, n: int = 6900,
+                    n_classes: int = 10):
+    """CIFAR-shaped images in the reference's NHWC layout, (n, 32, 32, 3)."""
+    x, y = make_classification(generator, n, n_classes, 32 * 32 * 3,
+                               noise=0.6)
+    return x.reshape(n, 32, 32, 3), y

@@ -1,4 +1,5 @@
-from .small_models import SmallModel, softmax_regression
+from .small_models import (SmallModel, mlp3, small_cnn, softmax_regression,
+                           vgg11)
 from .server import (AggregationContext, SecureServer, aggregate,
                      available_aggregators, get_aggregator,
                      register_aggregator)

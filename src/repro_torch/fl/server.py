@@ -6,14 +6,21 @@ registry, in PyTorch.
     sample as a *sealed* blob (Step 1).  Guide data is obtained only by
     unsealing those blobs, and the unsealed guide batches are cached on
     the server's device, keyed on the enclave's seal version, so a round
-    pays the unseal cost once, not every round.
+    pays the unseal cost once, not every round.  FLTrust's root update
+    (``compute_root_update``) is the same Step-3 SGD on the server's root
+    set.
   * The registry maps each aggregation rule name to a strategy with the
     uniform signature ``fn(U, ctx) -> (delta, logs)``, where ``U`` is the
     stacked (N, D) update matrix and ``ctx`` an :class:`AggregationContext`.
+    It holds the reference's nine rules: ``diversefl``, ``oracle``,
+    ``mean``, ``median``, ``trimmed_mean``, ``krum``, ``bulyan``,
+    ``resampling`` and ``fltrust``.
 
-Steps 4 and 5 of every registered rule go through ``kernels.ops``: on
-the card each round launches the CUDA statistics and masked-mean kernels
-(``diversefl``) or the masked-mean kernel (``oracle``, ``mean``).
+On the card ``diversefl`` launches the CUDA statistics and masked-mean
+kernels each round, ``oracle`` and ``mean`` the masked-mean kernel, and
+``fltrust`` the weighted-fold kernel (``kernels.ops``).  The median,
+trimmed-mean, Krum, Bulyan and resampling rules are plain PyTorch, as the
+reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..core import aggregators as agg
 from ..core.aggregators import flatten_updates
 from ..core.diversefl import DiverseFLConfig, criterion_logs, guiding_update
 from ..core.tee import Enclave
@@ -39,9 +47,14 @@ DEFAULT_IDENTITY = "diversefl-enclave-v1"
 @dataclasses.dataclass
 class AggregationContext:
     """Everything a registered rule may need beyond the update matrix."""
+    f: int = 0                                  # Byzantine budget
     dfl: DiverseFLConfig = DiverseFLConfig()
     byz_mask: Optional[torch.Tensor] = None     # ground truth (oracle only)
     guides: Optional[torch.Tensor] = None       # G (N, D), enclave Step 3
+    root_update: Optional[torch.Tensor] = None  # (D,) FLTrust root direction
+    resample_s: int = 2                         # resampling s_R
+    generator: Optional[torch.Generator] = None  # resampling's draw ...
+    resample_ids: Optional[torch.Tensor] = None  # ... or its (N, s_R) ids
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,17 +63,19 @@ class AggregatorEntry:
     fn: Callable[[torch.Tensor, AggregationContext],
                  Tuple[torch.Tensor, Dict]]
     needs_guides: bool = False                  # requires ctx.guides
+    needs_root: bool = False                    # requires ctx.root_update
 
 
 _REGISTRY: Dict[str, AggregatorEntry] = {}
 
 
-def register_aggregator(name: str, *, needs_guides: bool = False):
+def register_aggregator(name: str, *, needs_guides: bool = False,
+                        needs_root: bool = False):
     """Decorator: register ``fn(U, ctx) -> (delta, logs)`` under ``name``."""
     def deco(fn):
         if name in _REGISTRY:
             raise ValueError(f"aggregator {name!r} already registered")
-        _REGISTRY[name] = AggregatorEntry(name, fn, needs_guides)
+        _REGISTRY[name] = AggregatorEntry(name, fn, needs_guides, needs_root)
         return fn
     return deco
 
@@ -102,6 +117,45 @@ def _oracle(U, ctx):
 def _mean(U, ctx):
     ones = torch.ones((U.shape[0],), dtype=torch.float32, device=U.device)
     return kops.masked_aggregate(U, ones), {}
+
+
+@register_aggregator("median")
+def _median(U, ctx):
+    return agg.median(U), {}
+
+
+@register_aggregator("trimmed_mean")
+def _trimmed_mean(U, ctx):
+    return agg.trimmed_mean(U, ctx.f), {}
+
+
+@register_aggregator("krum")
+def _krum(U, ctx):
+    return agg.krum(U, ctx.f), {}
+
+
+@register_aggregator("bulyan")
+def _bulyan(U, ctx):
+    return agg.bulyan(U, ctx.f), {}
+
+
+@register_aggregator("resampling")
+def _resampling(U, ctx):
+    return agg.resampling(U, ctx.resample_s, generator=ctx.generator,
+                          ids=ctx.resample_ids), {}
+
+
+@register_aggregator("fltrust", needs_root=True)
+def _fltrust(U, ctx):
+    """[26] in weighted-mean form: a_i = TS_i·‖root‖/‖z_i‖ folds the
+    rescale into each client's weight, one pass over U accumulates
+    Σ a_i·z_i (the CUDA weighted-fold kernel on the card), one division by
+    Σ TS_i finalises."""
+    Uf = U.to(torch.float32)
+    ts, a = agg.fltrust_weights(Uf, ctx.root_update)
+    zeros = torch.zeros((U.shape[1],), dtype=torch.float32, device=U.device)
+    s = kops.masked_agg_update(Uf, a, zeros)
+    return s / ts.sum().clamp_min(1e-12), {}
 
 
 # ----------------------------------------------------------------------
@@ -192,6 +246,16 @@ class SecureServer:
                    for k, v in params.items()}
         guides = guiding_update(batched, (gx, gy), grad_fn, lr, E)
         return flatten_updates(guides)[0]
+
+    def compute_root_update(self, params, grad_fn, lr, E: int, root_x,
+                            root_y) -> torch.Tensor:
+        """FLTrust's server-side root direction: the same Step-3 SGD on the
+        server's root dataset, run as one pseudo-client.  Returns the flat
+        (D,) fp32 update, columns in the layout of ``flatten_updates``."""
+        batched = {k: v.unsqueeze(0) for k, v in params.items()}
+        root = guiding_update(batched, (root_x.unsqueeze(0),
+                                        root_y.unsqueeze(0)), grad_fn, lr, E)
+        return flatten_updates(root)[0][0]
 
     # --- Steps 4-5: criterion + aggregation ---------------------------
     @staticmethod

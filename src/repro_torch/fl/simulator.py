@@ -5,8 +5,9 @@ Each round (``make_round_body``): clients run E local SGD steps on fresh
 minibatches, all clients at once in one batched pass; Byzantine clients
 corrupt their data (label flip, backdoor) or their updates (gaussian,
 sign flip, same value, scaling); the SecureServer computes the guiding
-updates from the unsealed enclave samples and hands Steps 4-5 to the
-aggregator registry, whose rules run on the CUDA kernels on the card.
+updates from the unsealed enclave samples (DiverseFL) or the root update
+from its root set (FLTrust) and hands Steps 4-5 to the aggregator
+registry, whose weighted-mean rules run on the CUDA kernels on the card.
 
 Nothing inside a round waits on the card: the metrics leave the device
 only at eval points.
@@ -25,7 +26,7 @@ from ..core.attacks import (UPDATE_ATTACKS, AttackConfig, attack_update,
 from ..core.diversefl import DiverseFLConfig
 from ..data.pipeline import FederatedData
 from ..device import DeviceLike, resolve_device
-from .metrics import make_eval_fn
+from .metrics import BackdoorEval, make_backdoor_eval, make_eval_fn
 from .server import AggregationContext, SecureServer, get_aggregator
 from .small_models import SmallModel
 
@@ -42,6 +43,8 @@ class FLConfig:
     attack: AttackConfig = AttackConfig()
     dfl: DiverseFLConfig = DiverseFLConfig()
     sample_frac: float = 0.01            # enclave sample s / n_j
+    root_frac: float = 0.01              # FLTrust root dataset fraction
+    resample_s: int = 2                  # Resampling s_R
     participation: float = 1.0           # C = ceil(participation * N) <= N
     eval_every: int = 10
     seed: int = 0
@@ -66,6 +69,10 @@ class Federation:
     test_y: torch.Tensor
     byz_mask: torch.Tensor                  # (N,) bool — ground truth
     server: SecureServer                    # owns the enclave + registry
+    root_x: Optional[torch.Tensor] = None   # FLTrust root dataset
+    root_y: Optional[torch.Tensor] = None
+    _bd_eval: Optional[BackdoorEval] = dataclasses.field(
+        default=None, repr=False)           # cached trigger-stamped test set
 
     @property
     def device(self) -> torch.device:
@@ -75,41 +82,69 @@ class Federation:
     def enclave(self):
         return self.server.enclave
 
+    def backdoor_eval(self, acfg: AttackConfig) -> BackdoorEval:
+        """The trigger-stamped backdoor test set, built once per
+        federation (per source/target pair)."""
+        bd = self._bd_eval
+        if bd is None or (bd.source_class, bd.target_class) != \
+                (acfg.source_class, acfg.target_class):
+            bd = make_backdoor_eval(self.test_x, self.test_y, acfg)
+            self._bd_eval = bd
+        return bd
+
     @classmethod
     def create(cls, model: SmallModel, data: FederatedData, test_x, test_y,
                cfg: FLConfig, generator: Optional[torch.Generator] = None, *,
                device: DeviceLike = None,
-               enclave_idx: Optional[torch.Tensor] = None) -> "Federation":
+               enclave_idx: Optional[torch.Tensor] = None,
+               root_idx: Optional[torch.Tensor] = None) -> "Federation":
         """Steps 0-1 on ``device`` (the card unless given): place the data,
-        attest the server, and seal each client's shared sample — drawn
-        with ``generator`` (default: seeded from ``cfg.seed`` on the
-        device) or given as ``enclave_idx`` (N, s).  No plaintext copy of
-        the samples is kept."""
+        attest the server, and seal each client's shared sample; then pick
+        FLTrust's root set, a random subset of root_frac of the union of
+        the client data.  The draws come from ``generator`` (default:
+        seeded from ``cfg.seed`` on the device), the enclave samples first,
+        or are given as ``enclave_idx`` (N, s) and ``root_idx`` (n_root,)
+        ids into the flattened client data.  No plaintext copy of the
+        samples is kept."""
         dev = resolve_device(device)
         data = data.to(dev)
-        if generator is None and enclave_idx is None:
+        if generator is None and (enclave_idx is None or root_idx is None):
             generator = torch.Generator(device=dev).manual_seed(cfg.seed)
         server = SecureServer(device=dev)
         gx, gy = data.enclave_samples(cfg.sample_frac, generator,
                                       idx=enclave_idx)
         for j in range(data.n_clients):
             server.ingest_samples(j, gx[j], gy[j])
+        del gx, gy
+        flat_x = data.x.reshape((-1,) + tuple(data.x.shape[2:]))
+        flat_y = data.y.reshape(-1)
+        n_root = max(1, int(cfg.root_frac * flat_y.shape[0]))
+        if root_idx is None:
+            root_idx = torch.randperm(flat_y.shape[0], generator=generator,
+                                      device=generator.device)[:n_root]
+        elif tuple(root_idx.shape) != (n_root,):
+            raise ValueError(f"root_idx must be ({n_root},), got "
+                             f"{tuple(root_idx.shape)}")
+        root_idx = root_idx.to(dev)
         return cls(model=model, data=data, test_x=test_x.to(dev),
                    test_y=test_y.to(dev),
                    byz_mask=make_byzantine_mask(data.n_clients, cfg.f,
                                                 device=dev),
-                   server=server)
+                   server=server, root_x=flat_x[root_idx],
+                   root_y=flat_y[root_idx])
 
 
 def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     """Build ``body(params, lr, generator=None, *, batch_idx=None,
-    sel=None, noise=None) -> (new_params, logs)``: one round of Steps 2-5.
+    sel=None, noise=None, resample_ids=None) -> (new_params, logs)``: one
+    round of Steps 2-5.
 
     The round's random draws come from ``generator`` in this order: the
     (N, E·m) minibatch indices, the participating subset (only when
-    participation < 1) and the gaussian attack noise.  Each can be given
-    explicitly instead: ``batch_idx`` (N, E·m), ``sel`` (C,) client ids,
-    ``noise`` (C, D) standard normal."""
+    participation < 1), the gaussian attack noise and, last, the
+    resampling rule's groups.  Each can be given explicitly instead:
+    ``batch_idx`` (N, E·m), ``sel`` (C,) client ids, ``noise`` (C, D)
+    standard normal, ``resample_ids`` (C, s_R) client ids."""
     E, m = cfg.local_steps, cfg.batch_size
     acfg = cfg.attack
     N, C = cfg.n_clients, cfg.n_selected
@@ -123,7 +158,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
         return model.grad(params, batch, cfg.l2)
 
     def body(params, lr, generator=None, *, batch_idx=None, sel=None,
-             noise=None):
+             noise=None, resample_ids=None):
         xb, yb = fed.data.minibatch(E * m, generator, idx=batch_idx)
         xb = xb.reshape((N, E, m) + tuple(xb.shape[2:]))
         yb = yb.reshape(N, E, m)
@@ -162,10 +197,16 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
             U_att = attack_update(U, acfg.kind, acfg, generator, noise=noise)
             U = torch.where(byz[:, None], U_att, U)
 
-        # ---- Steps 3-5: SecureServer (enclave guides -> registry) ----
+        # ---- Steps 3-5: SecureServer (guides / root -> registry) ----
         G = fed.server.compute_guides(params, grad_fn, lr, E, select=sel) \
             if entry.needs_guides else None
-        ctx = AggregationContext(dfl=cfg.dfl, byz_mask=byz, guides=G)
+        root = fed.server.compute_root_update(
+            params, grad_fn, lr, E, fed.root_x, fed.root_y) \
+            if entry.needs_root else None
+        ctx = AggregationContext(
+            f=cfg.f, dfl=cfg.dfl, byz_mask=byz, guides=G, root_update=root,
+            resample_s=cfg.resample_s, generator=generator,
+            resample_ids=resample_ids)
         delta, agg_logs = fed.server.aggregate(cfg.aggregator, U, ctx)
         logs.update(agg_logs)
         step = unravel(delta)

@@ -11,9 +11,11 @@
 // With w the 0/1 keep mask and normalize = 1 this is Eq. 6, and an empty
 // mask gives exactly 0.  The kernel reads the bool mask itself, so Eq. 6
 // is one launch.  The optional accumulator `acc` (nullptr = 0) with fp32
-// weights and normalize = 0 is the streaming fold acc + sum_i w_i u_i that
-// the TPU's `masked_agg_update_kernel` computes, so a later slice can
-// reuse this entry point.
+// weights and normalize = 0 is the weighted fold acc + sum_i w_i u_i that
+// the TPU's `masked_agg_update_kernel` (src/repro/kernels/masked_agg.py:47)
+// computes; the wrapper masked_agg_update_cuda launches it so for
+// FLTrust.  `out` must not alias `acc` or `u` (both are __restrict__):
+// that wrapper writes a fresh buffer instead of updating acc in place.
 //
 // Bound: HBM bytes.  U is read once (N*D*4 bytes), the output written
 // once; 2 flops per element of U.

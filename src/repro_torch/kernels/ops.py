@@ -6,17 +6,21 @@ launch error, and a tensor on any other device raises.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from ..core.diversefl import DiverseFLConfig, diversefl_mask
-from .masked_agg import masked_agg_cuda, masked_agg_plain
+from .masked_agg import (masked_agg_cuda, masked_agg_plain,
+                         masked_agg_update_cuda, masked_agg_update_plain)
+from .robust_agg import robust_agg_cuda, robust_agg_plain
 from .similarity import similarity_cuda, similarity_plain
 
 # the launching wrappers, by the kernel name chip_smoke.py reports
 KERNELS = {"similarity_stats": similarity_cuda,
-           "masked_aggregate": masked_agg_cuda}
+           "masked_aggregate": masked_agg_cuda,
+           "masked_agg_update": masked_agg_update_cuda,
+           "robust_aggregate": robust_agg_cuda}
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -41,6 +45,25 @@ def masked_aggregate(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if _route(u, "masked_aggregate"):
         return masked_agg_cuda(u, mask)
     return masked_agg_plain(u, mask)
+
+
+def masked_agg_update(u: torch.Tensor, w: torch.Tensor,
+                      acc: torch.Tensor) -> torch.Tensor:
+    """(n, D), (n,), (D,) -> a new (D,) ``acc + Σᵢ wᵢuᵢ`` (fp32 weights,
+    no normalisation; acc is not modified)."""
+    if _route(u, "masked_agg_update"):
+        return masked_agg_update_cuda(u, w, acc)
+    return masked_agg_update_plain(u, w, acc)
+
+
+def robust_aggregate(u: torch.Tensor, f: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, D) -> (median (D,), trimmed mean (D,)): the coordinate-wise
+    median and the mean of the values within the (N-2f)-th smallest
+    distance to it.  The CUDA route takes N <= 64."""
+    if _route(u, "robust_aggregate"):
+        return robust_agg_cuda(u, f)
+    return robust_agg_plain(u, f)
 
 
 def diversefl_step45(u: torch.Tensor, g: torch.Tensor, cfg: DiverseFLConfig):

@@ -87,7 +87,9 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
     assert torch.equal(ops.masked_aggregate(ut, mask),
                        masked_agg_plain(ut, mask))
     assert ops.launch_counts() == {"similarity_stats": 0,
-                                   "masked_aggregate": 0}
+                                   "masked_aggregate": 0,
+                                   "masked_agg_update": 0,
+                                   "robust_aggregate": 0}
 
 
 def test_ops_reject_devices_without_a_kernel_or_plain_route():

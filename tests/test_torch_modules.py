@@ -309,12 +309,14 @@ def test_registry_rules_match_the_reference(name):
     if "mask" in jlogs:
         np.testing.assert_array_equal(tlogs["mask"].numpy(),
                                       np.asarray(jlogs["mask"]))
-    assert available_aggregators() == ("diversefl", "oracle", "mean")
+    assert available_aggregators() == ("diversefl", "oracle", "mean",
+                                       "median", "trimmed_mean", "krum",
+                                       "bulyan", "resampling", "fltrust")
 
 
 def test_unknown_aggregator_is_a_named_error():
     with pytest.raises(ValueError, match="unknown aggregator"):
-        FLConfig(aggregator="median")
+        FLConfig(aggregator="rsa")
     assert FLConfig(n_clients=23, participation=0.5).n_selected == 12
 
 
