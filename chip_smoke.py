@@ -31,7 +31,18 @@ Phases (any failure raises and the script exits non-zero):
                CNN, two VGG-11 rounds of diversefl and fltrust at
                D = 28,146,762, and fltrust/median rounds on the card
                against the CPU's on injected draws
-  6. result  - a ``kernels`` JSON line, then ``{"ok": true, ...}`` last
+  6. slice 3 - [kernels]: the int8 codec on the card against the CPU's,
+               bitwise; the dequantize-and-fold kernel and the weighted
+               fold of a bf16 payload against their plain versions from
+               (8, 199210) to VGG-11's (8, 28146762), timed cold and warm.
+               [stream]: Fig. 4's 3-NN streamed in blocks of 8 under the
+               f32, bf16 and int8 codecs: streaming against dense bitwise,
+               40-round runs with the reference's bars and launch counts.
+               [comm]: the reference's compressed-uplink deployment (256
+               clients, blocks of 64) on the 3-NN per codec.  [vgg11]:
+               streaming int8 diversefl rounds.  [train]: streaming int8
+               rounds on the card against the CPU's on injected draws
+  7. result  - a ``kernels`` JSON line, then ``{"ok": true, ...}`` last
 """
 import json
 import math
@@ -53,9 +64,12 @@ from repro_torch.data import (FederatedData, make_cifar_like,  # noqa: E402
 from repro_torch.fl import (FLConfig, Federation,  # noqa: E402
                             make_round_body, mlp3, run_federated_training,
                             small_cnn, softmax_regression, vgg11)
+from repro_torch.fl.compression import get_codec  # noqa: E402
 from repro_torch.fl.server import (AggregationContext,  # noqa: E402
                                    aggregate)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.dequant_fold import (  # noqa: E402
+    dequant_fold_update_cuda, dequant_fold_update_plain, dequant_int8)
 from repro_torch.kernels.masked_agg import (masked_agg_cuda,  # noqa: E402
                                             masked_agg_plain,
                                             masked_agg_update_cuda,
@@ -72,6 +86,7 @@ L2_BYTES = 50 * 2 ** 20          # H100 SXM L2
 COLD_BYTES = 4 * L2_BYTES        # a cold timing cycles over this many bytes
 MAIN_SHAPE = (23, 7850)          # 23 clients x softmax regression's D
 SEED = 0                         # the training runs' draws (see detection_scan)
+QBLOCK = 128                     # the int8 codec's scale block
 # the update widths of the models the slices train: the 3-NN (784-200-
 # 200-10), the Appendix-C small CNN and VGG-11
 D_MLP3, D_SMALL_CNN, D_VGG11 = 199_210, 117_706, 28_146_762
@@ -90,6 +105,9 @@ KERNEL_META = {
     "robust_aggregate": {
         "source": "src/repro_torch/kernels/csrc/robust_agg.cu",
         "replaces": "src/repro/kernels/robust_agg.py:55"},
+    "dequant_fold_update": {
+        "source": "src/repro_torch/kernels/csrc/dequant_fold.cu",
+        "replaces": "src/repro/kernels/dequant_fold.py:40"},
 }
 S2_SHAPE = (23, D_MLP3)          # the weighted fold's shape in Fig. 4
 ROBUST_SHAPES = [(23, 7850), S2_SHAPE, (24, 7850), (64, 7850), (23, D_VGG11)]
@@ -97,6 +115,12 @@ F_BUDGET = 5                     # f of the paper's 23-client runs
 FIG4_SCHEMES = ("oracle", "diversefl", "median", "fltrust")
 FIG4_ATTACKS = ("gaussian", "sign_flip", "label_flip")
 OTHER_BASELINES = ("trimmed_mean", "krum", "bulyan", "resampling")
+DEV = "cuda"                     # slice 3's phases place everything here
+CODECS = ("f32", "bf16", "int8")
+CHUNK = 8                        # the headline's client_chunk: 3 blocks
+S3_SHAPE = (CHUNK, D_MLP3)       # one int8 block of the 3-NN's clients
+S3_SHAPES = [S3_SHAPE, (23, D_MLP3), (64, D_MLP3), (23, 16411),
+             (23, 2_000_000), (CHUNK, D_VGG11)]
 
 
 def log(msg):
@@ -419,13 +443,14 @@ def oddeven_pairs(n):
 def check_update(u, w, acc):
     """The weighted fold against its plain left fold: real weights round
     differently under the kernel's fmaf, so within
-    1e-5 * (|acc| + Σ|wᵢuᵢ|) + 1e-7; bitwise repeatable; acc untouched."""
+    1e-5 * (|acc| + Σ|wᵢuᵢ|) + 1e-7; bitwise repeatable; acc untouched.
+    ``u`` is fp32 or bf16."""
     acc0 = acc.clone()
     out = masked_agg_update_cuda(u, w, acc)
     again = masked_agg_update_cuda(u, w, acc)
     torch.cuda.synchronize()
     ref = masked_agg_update_plain(u, w, acc)
-    scale = acc.abs() + torch.mv(u.abs().T, w.abs())
+    scale = acc.abs() + torch.mv(u.to(torch.float32).abs().T, w.abs())
     err = (out - ref).abs()
     if not bool((err <= 1e-5 * scale + 1e-7).all()):
         raise AssertionError(f"masked_agg_update disagrees at "
@@ -562,24 +587,31 @@ def expected_counts(aggregator, rounds):
 
 
 def fl_run(model, data, tx, ty, aggregator, attack, rounds, lr0=0.05,
-           seed=SEED, tag=""):
+           seed=SEED, tag="", expect=None, **cfg_kw):
     """One run through the normal entry points, with the launch counts
-    set to 0 just before it and read just after."""
-    cfg = FLConfig(rounds=rounds, aggregator=aggregator, attack=attack,
-                   batch_size=50, l2=0.0005, eval_every=rounds, seed=seed)
+    set to 0 just before it and read just after; they must equal
+    ``expect`` (default: the dense rule's :func:`expected_counts`).
+    ``cfg_kw`` sets or overrides FLConfig fields.  Returns the history,
+    ms per round and the counts; the peak device memory of the run is
+    ``torch.cuda.max_memory_allocated()`` after it."""
+    cfg = FLConfig(**{**dict(rounds=rounds, aggregator=aggregator,
+                             attack=attack, batch_size=50, l2=0.0005,
+                             eval_every=rounds, seed=seed), **cfg_kw})
     fed = Federation.create(
         model, data, tx, ty, cfg,
         torch.Generator(device="cuda").manual_seed(100 + seed))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     h = run_federated_training(model, fed, cfg, inv_sqrt_lr(lr0))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / rounds
     counts = ops.launch_counts()
-    if counts != expected_counts(aggregator, rounds):
-        raise AssertionError(f"{tag} {aggregator}: launches {counts}, "
-                             f"expected {expected_counts(aggregator, rounds)}")
+    want = expected_counts(aggregator, rounds) if expect is None else expect
+    if counts != want:
+        raise AssertionError(f"{tag} {aggregator} {cfg_kw}: launches "
+                             f"{counts}, expected {want}")
     if not all(bool(torch.isfinite(v).all()) for v in h["params"].values()):
         raise AssertionError(f"{tag} {aggregator}: non-finite params")
     return h, ms, counts
@@ -666,22 +698,46 @@ def phase_fig5(card):
 
 def phase_vgg11(card):
     """VGG-11 at its full width (D = 28,146,762): two rounds each of
-    diversefl and fltrust on 23 CIFAR-like clients."""
+    diversefl and fltrust on 23 CIFAR-like clients, then two rounds of
+    int8 diversefl, dense and streamed in blocks of 8, each after a
+    warm-up round."""
     data, tx, ty = cifar_federation()
     model = vgg11()
+    acfg = AttackConfig(kind="sign_flip", sigma=10.0)
     fl_run(model, data, tx, ty, "fltrust", AttackConfig(kind="sign_flip"), 1,
            tag="vgg11")                    # warm-up: cuDNN's first calls
     for scheme in ("diversefl", "fltrust"):
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        h, ms, counts = fl_run(model, data, tx, ty, scheme,
-                               AttackConfig(kind="sign_flip", sigma=10.0), 2,
+        h, ms, counts = fl_run(model, data, tx, ty, scheme, acfg, 2,
                                tag="vgg11")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[vgg11] {scheme:9s} 2 rounds: {ms:.1f} ms/round (after a "
             f"1-round warm-up), acc {h['final_acc']:.4f}, "
             f"launches { {k: v for k, v in counts.items() if v} }, peak "
             f"{peak:.2f} GiB, params finite [{card}]")
+    for rounds in (1, 2):                  # warm-up: the codec's ops
+        torch.cuda.empty_cache()
+        h, ms, counts = fl_run(model, data, tx, ty, "diversefl", acfg,
+                               rounds, tag="vgg11", compression="int8")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[vgg11] diversefl dense int8 2 rounds: {ms:.1f} ms/round (after a "
+        f"1-round warm-up), acc {h['final_acc']:.4f}, peak {peak:.2f} GiB "
+        f"[{card}]")
+    stream = dict(streaming=True, client_chunk=CHUNK, compression="int8")
+    blocks = -(-data.n_clients // CHUNK)
+    for rounds in (1, 2):                  # warm-up: the blocks' shapes
+        torch.cuda.empty_cache()
+        h, ms, counts = fl_run(
+            model, data, tx, ty, "diversefl", acfg, rounds, tag="vgg11",
+            expect=stream_counts("diversefl", "int8", rounds, blocks),
+            **stream)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[vgg11] diversefl streaming int8, blocks of {CHUNK}, 2 rounds: "
+        f"{ms:.1f} ms/round (after a 1-round warm-up), acc "
+        f"{h['final_acc']:.4f}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, peak {peak:.2f} GiB "
+        f"(the (23, D) fp32 residual plane is "
+        f"{23 * D_VGG11 * 4 / 2 ** 30:.2f} GiB), params finite [{card}]")
 
 
 def phase_card_vs_cpu_s2():
@@ -724,6 +780,330 @@ def phase_card_vs_cpu_s2():
             f"max |err| {err:.3g} (TF32 off)")
 
 
+# ----------------------------------------------------------------------
+# slice 3: streaming aggregation and the compressed uplink
+# ----------------------------------------------------------------------
+
+def stream_counts(aggregator, codec, rounds, blocks):
+    """Kernel launches of a streaming run: one fold per block (the
+    dequantize-and-fold kernel under int8, the weighted fold otherwise)
+    and, for diversefl, one similarity pass per block."""
+    c = dict.fromkeys(ops.KERNELS, 0)
+    fold = "dequant_fold_update" if codec == "int8" else "masked_agg_update"
+    c[fold] = rounds * blocks
+    if aggregator == "diversefl":
+        c["similarity_stats"] = rounds * blocks
+    return c
+
+
+def check_dequant(q, scale, w, acc):
+    """The dequantize-and-fold kernel against its plain version (decode,
+    then the left fold): real weights round differently under the
+    kernel's fmaf, so within 1e-5 * (|acc| + Σ|wᵢ·decᵢ|) + 1e-7; bitwise
+    repeatable; acc untouched."""
+    acc0 = acc.clone()
+    out = dequant_fold_update_cuda(q, scale, w, acc, QBLOCK)
+    again = dequant_fold_update_cuda(q, scale, w, acc, QBLOCK)
+    torch.cuda.synchronize()
+    ref = dequant_fold_update_plain(q, scale, w, acc, QBLOCK)
+    scale_ = acc.abs() + torch.mv(dequant_int8(q, scale, QBLOCK).abs().T,
+                                  w.abs())
+    err = (out - ref).abs()
+    if not bool((err <= 1e-5 * scale_ + 1e-7).all()):
+        raise AssertionError(f"dequant_fold_update disagrees at "
+                             f"{tuple(q.shape)}: max |err| "
+                             f"{err.max().item()}")
+    if not torch.equal(out, again):
+        raise AssertionError(f"dequant_fold_update not bitwise repeatable at "
+                             f"{tuple(q.shape)}")
+    if not torch.equal(acc, acc0):
+        raise AssertionError("dequant_fold_update modified acc")
+    return err.max().item()
+
+
+def update_rows(n, d, gen):
+    """(n, d) fp32 rows whose magnitudes span six decades; the first block
+    holds values at k + 0.5 after the int8 division and the second is
+    all zeros."""
+    x = torch.randn((n, d), generator=gen, device=DEV) \
+        * torch.logspace(-4, 2, n, device=DEV)[:, None]
+    if d >= 2 * QBLOCK:
+        x[:, :QBLOCK] = torch.arange(QBLOCK, device=DEV) - 63.5
+        x[:, 0] = 127.0
+        x[:, QBLOCK:2 * QBLOCK] = 0.0
+    return x
+
+
+def phase_kernels_s3(card):
+    gen = torch.Generator(device=DEV).manual_seed(2468)
+    int8 = get_codec("int8")
+    # the codecs on the card against the CPU's: the encode is a true
+    # division, round half to even and a bf16 cast, in both
+    x = update_rows(23, D_MLP3, gen)
+    for name in ("bf16", "int8"):
+        codec = get_codec(name)
+        card_enc, cpu_enc = codec.encode(x), codec.encode(x.cpu())
+        for key in card_enc:
+            if not torch.equal(card_enc[key].cpu(), cpu_enc[key]):
+                raise AssertionError(f"{name} encode on the card differs "
+                                     f"from the CPU's ({key})")
+    log(f"[kernels] bf16 and int8 encodes of (23, {D_MLP3}) on the card "
+        f"equal the CPU's bitwise")
+    timed = {}
+    for n, d in S3_SHAPES:
+        x = update_rows(n, d, gen)
+        enc = int8.encode(x)
+        q, scale = enc["q"], enc["scale"]
+        u16 = x.to(torch.bfloat16)
+        del x, enc
+        w = torch.rand((n,), generator=gen, device=DEV) * 2.0
+        acc = torch.randn((d,), generator=gen, device=DEV)
+        m = (w > 1.0).to(torch.float32)           # exact 0/1 products
+        err = check_dequant(q, scale, w, acc)
+        if not torch.equal(dequant_fold_update_cuda(q, scale, m, acc, QBLOCK),
+                           dequant_fold_update_plain(q, scale, m, acc,
+                                                     QBLOCK)):
+            raise AssertionError(f"dequant_fold_update is not bitwise the "
+                                 f"left fold for 0/1 weights at {(n, d)}")
+        if not torch.equal(dequant_fold_update_cuda(
+                q, scale, torch.zeros_like(w), acc, QBLOCK), acc):
+            raise AssertionError(f"dequant_fold_update: zero weights do not "
+                                 f"return acc at {(n, d)}")
+        err16 = check_update(u16, w, acc)
+        if not torch.equal(masked_agg_update_cuda(u16, m, acc),
+                           masked_agg_update_plain(u16, m, acc)):
+            raise AssertionError(f"bf16 masked_agg_update is not bitwise the "
+                                 f"left fold for 0/1 weights at {(n, d)}")
+        log(f"[kernels] dequant_fold_update ({n}, {d}) qblock {QBLOCK}: "
+            f"max |err| {err:.3g}; bf16 masked_agg_update max |err| "
+            f"{err16:.3g}; both bitwise the left fold for 0/1 weights, "
+            f"repeatable, zero weights return acc")
+        if (n, d) == S3_SHAPE:
+            # the similarity pass of one streamed diversefl block
+            z = dequant_int8(q, scale, QBLOCK)
+            g = z + 0.5 * torch.randn((n, d), generator=gen, device=DEV)
+            timed[("similarity_stats", n, d)] = time_kernel(
+                card, "similarity_stats", (n, d),
+                (lambda z, g, S: similarity_cuda(z, g),
+                 lambda z, g, S: similarity_plain(z, g),
+                 lambda z, g, S: torch.bmm(S, S.transpose(1, 2))),
+                (z, g, torch.stack([z, g], dim=1)),
+                bound_ms(2 * n * d * 4 + n * 3 * 4, 6 * n * d),
+                check_similarity(z, g))
+            del z, g
+        if (n, d) in (S3_SHAPE, (23, 2_000_000), (CHUNK, D_VGG11)):
+            nb = scale.shape[1]
+            iters, warm = (20, 3) if d == D_VGG11 else (200, 20)
+            timed[("dequant_fold_update", n, d)] = time_kernel(
+                card, "dequant_fold_update", (n, d),
+                (lambda q, s, w, a: dequant_fold_update_cuda(q, s, w, a,
+                                                             QBLOCK),
+                 lambda q, s, w, a: dequant_fold_update_plain(q, s, w, a,
+                                                              QBLOCK),
+                 lambda q, s, w, a: torch.addmv(
+                     a, dequant_int8(q, s, QBLOCK).T, w)),
+                (q, scale, w, acc),
+                bound_ms(n * d + 4 * n * nb + 4 * n + 8 * d, 3 * n * d),
+                err, iters, warm)
+            if (n, d) != (23, 2_000_000):
+                timed[("masked_agg_update bf16", n, d)] = time_kernel(
+                    card, "masked_agg_update bf16", (n, d),
+                    (masked_agg_update_cuda, masked_agg_update_plain,
+                     lambda u, w, a: torch.addmv(a, u.to(torch.float32).T,
+                                                 w)),
+                    (u16, w, acc),
+                    bound_ms(2 * n * d + 4 * n + 8 * d, 2 * n * d), err16,
+                    iters, warm)
+        del q, scale, u16, w, acc, m
+        torch.cuda.empty_cache()
+    log("[kernels] slice 3: the dequantize-and-fold kernel and the bf16 "
+        "weighted fold agree with their plain versions at every shape")
+    return {"dequant_fold_update": timed[("dequant_fold_update",)
+                                         + S3_SHAPE]}
+
+
+def same_run(a, b):
+    """Two histories bit for bit: params, accuracy, masks, criterion."""
+    return (all(torch.equal(a["params"][k], b["params"][k])
+                for k in a["params"])
+            and all(a[k] == b[k] for k in ("acc", "mask_tpr", "mask_fpr"))
+            and all(np.array_equal(x, y) for x, y in zip(a["c1c2"],
+                                                         b["c1c2"])))
+
+
+def phase_stream(card):
+    """Configuration 1: Fig. 4's 3-NN (D = 199,210), 23 sorted-shard
+    clients, f = 5 under sign_flip, batch 50, inv_sqrt_lr(0.05), l2 =
+    0.0005, streamed in blocks of 8 (8, 8, 7 + 1 padding row) under each
+    codec."""
+    data, tx, ty = mnist_federation()
+    model = mlp3()
+    acfg = AttackConfig(kind="sign_flip", sigma=10.0)
+    blocks = -(-data.n_clients // CHUNK)
+    stream = dict(streaming=True, client_chunk=CHUNK)
+    fl_run(model, data, tx, ty, "diversefl", acfg, 2, tag="stream",
+           expect=stream_counts("diversefl", "int8", 2, blocks),
+           compression="int8", **stream)                         # warm-up
+    # streaming against dense, 10 rounds: bitwise against the dense path
+    # at the same chunk (the same batched shapes reach cuBLAS); against
+    # the unchunked dense path it is printed, not required
+    unchunked = {}
+    for rule in ("diversefl", "oracle", "mean"):
+        for codec in CODECS:
+            hs, _, _ = fl_run(model, data, tx, ty, rule, acfg, 10,
+                              tag="stream",
+                              expect=stream_counts(rule, codec, 10, blocks),
+                              compression=codec, **stream)
+            hd, _, _ = fl_run(model, data, tx, ty, rule, acfg, 10,
+                              tag="stream", compression=codec,
+                              client_chunk=CHUNK)
+            if not same_run(hs, hd):
+                raise AssertionError(f"streaming {rule} {codec} differs from "
+                                     f"dense")
+            hu, _, _ = fl_run(model, data, tx, ty, rule, acfg, 10,
+                              tag="stream", compression=codec)
+            unchunked[(rule, codec)] = same_run(hs, hu)
+    log(f"[stream] 3-NN, 10 rounds: streaming == dense bitwise for "
+        f"diversefl/oracle/mean under f32/bf16/int8 (dense in the same "
+        f"blocks of {CHUNK}); also bitwise against the unchunked dense path: "
+        f"{unchunked} [{card}]")
+    for codec in CODECS:
+        hs, _, _ = fl_run(model, data, tx, ty, "fltrust", acfg, 10,
+                          tag="stream",
+                          expect=stream_counts("fltrust", codec, 10, blocks),
+                          compression=codec, **stream)
+        hd, _, _ = fl_run(model, data, tx, ty, "fltrust", acfg, 10,
+                          tag="stream", compression=codec, client_chunk=CHUNK)
+        for k in hd["params"]:
+            torch.testing.assert_close(hs["params"][k], hd["params"][k],
+                                       atol=1e-5, rtol=1e-4)
+        err = max((hs["params"][k] - hd["params"][k]).abs().max().item()
+                  for k in hd["params"])
+        log(f"[stream] fltrust {codec}: streaming vs dense params max |err| "
+            f"{err:.3g} after 10 rounds (Σ TSᵢ summed per block) [{card}]")
+    main_counts = None
+    for codec in CODECS:
+        rules = ("diversefl", "oracle", "mean", "fltrust") \
+            if codec == "int8" else ("diversefl", "oracle")
+        acc = {}
+        for rule in rules:
+            h, ms, counts = fl_run(
+                model, data, tx, ty, rule, acfg, 40, tag="stream",
+                expect=stream_counts(rule, codec, 40, blocks),
+                compression=codec, **stream)
+            acc[rule] = h["final_acc"]
+            if (rule, codec) == ("diversefl", "int8"):
+                main_counts = counts          # slice 3's main path
+                tpr = h["mask_tpr"][-1]
+                if tpr < 0.8:
+                    raise AssertionError(f"streaming int8 diversefl TPR {tpr}")
+            log(f"[stream] 3-NN {codec:4s} {rule:9s} 40 rounds acc "
+                f"{h['final_acc']:.4f} "
+                f"TPR {h['mask_tpr'][-1] if h['mask_tpr'] else '-'} "
+                f"FPR {h['mask_fpr'][-1] if h['mask_fpr'] else '-'} "
+                f"{ms:.3f} ms/round launches "
+                f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+        if acc["diversefl"] < acc["oracle"] - 0.03:
+            raise AssertionError(f"{codec}: diversefl {acc['diversefl']} "
+                                 f"below oracle {acc['oracle']} - 0.03")
+    log("[stream] bars met under every codec: diversefl >= oracle - 0.03, "
+        "TPR >= 0.8; every round launched one fold and (diversefl) one "
+        "similarity pass per block")
+    return main_counts
+
+
+def phase_comm(card):
+    """Configuration 2: the reference's compressed-uplink deployment
+    (benchmarks/comm_bench.py: 256 clients in blocks of 64, streaming
+    diversefl, f = 51 under sign_flip) on the paper's 3-NN, 50 MNIST-like
+    samples a client, batch 10, 20 rounds, per codec."""
+    n, per = 256, 50
+    x, y = make_mnist_like(torch.Generator(device="cuda").manual_seed(0),
+                           n * per)
+    tx, ty = make_mnist_like(torch.Generator(device="cuda").manual_seed(9),
+                             800)
+    data = FederatedData.from_partitions(partition_sorted_shards(x, y, n), 10)
+    model = mlp3()
+    acfg = AttackConfig(kind="sign_flip")
+    kw = dict(n_clients=n, f=n // 5, batch_size=10, l2=0.0, streaming=True,
+              client_chunk=64)
+    blocks = n // 64
+    fl_run(model, data, tx, ty, "diversefl", acfg, 1, tag="comm",
+           expect=stream_counts("diversefl", "int8", 1, blocks),
+           compression="int8", **kw)                             # warm-up
+    res = {}
+    for codec in CODECS:
+        torch.cuda.empty_cache()
+        h, ms, counts = fl_run(
+            model, data, tx, ty, "diversefl", acfg, 20, tag="comm",
+            expect=stream_counts("diversefl", codec, 20, blocks),
+            compression=codec, **kw)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        res[codec] = h
+        log(f"[comm] N = {n}, blocks of 64, {codec:4s}: acc "
+            f"{h['final_acc']:.4f} TPR {h['mask_tpr'][-1]} FPR "
+            f"{h['mask_fpr'][-1]}, uplink {h['uplink_bytes_per_client']} "
+            f"B/client (reduction {h['uplink_reduction']:.4f}x), "
+            f"{ms:.3f} ms/round, peak {peak:.2f} GiB [{card}]")
+    if not (res["int8"]["uplink_reduction"] >= 3.5
+            and res["int8"]["uplink_bytes_per_client"]
+            == D_MLP3 + 4 * -(-D_MLP3 // QBLOCK)
+            and res["bf16"]["uplink_reduction"] == 2.0):
+        raise AssertionError("uplink reduction off")
+    for codec in ("bf16", "int8"):
+        gap = abs(res[codec]["final_acc"] - res["f32"]["final_acc"])
+        if gap > 0.01:
+            raise AssertionError(f"{codec} accuracy {res[codec]['final_acc']} "
+                                 f"is {gap} from f32's")
+    log("[comm] int8 uplink reduction >= 3.5 and bf16 2.0; bf16 and int8 "
+        "final accuracy within 0.01 of f32")
+
+
+def phase_card_vs_cpu_s3():
+    """Three rounds of streaming int8 diversefl on the 3-NN, on the card
+    and on the CPU from the same minibatch ids and enclave samples: masks
+    equal every round, params within atol 5e-5 / rtol 1e-4.  The atol
+    admits a few int8 values that a 1e-7 difference between the devices'
+    updates moves across a rounding boundary: each such step moves one
+    client's decoded value by its block's scale (about 4e-5 here) and the
+    mean by that over the kept count."""
+    rng = np.random.default_rng(19)
+    data, tx, ty = mnist_federation()
+    model = mlp3()
+    init = model.init(torch.Generator().manual_seed(3), "cpu")
+    cfg = FLConfig(rounds=3, aggregator="diversefl", l2=0.0005,
+                   attack=AttackConfig(kind="sign_flip"), batch_size=50,
+                   streaming=True, client_chunk=CHUNK, compression="int8")
+    enc = torch.from_numpy(np.stack([
+        rng.choice(data.per_client, data.sample_size(cfg.sample_frac),
+                   replace=False) for _ in range(data.n_clients)]))
+    runs = {}
+    for dev in (DEV, "cpu"):
+        fed = Federation.create(model, data, tx, ty, cfg, device=dev,
+                                enclave_idx=enc)
+        body = make_round_body(model, fed, cfg)
+        carry = ({k: v.to(dev) for k, v in init.items()},
+                 torch.zeros((data.n_clients, D_MLP3), device=dev))
+        draw = np.random.default_rng(11)
+        masks = []
+        with torch.no_grad():
+            for i in range(1, cfg.rounds + 1):
+                idx = torch.from_numpy(draw.integers(
+                    0, data.per_client, (data.n_clients, cfg.batch_size)))
+                carry, logs = body(carry, inv_sqrt_lr(0.05)(i),
+                                   batch_idx=idx)
+                masks.append(logs["mask"].cpu())
+        runs[dev] = ({k: v.cpu() for k, v in carry[0].items()}, masks)
+    (p_gpu, m_gpu), (p_cpu, m_cpu) = runs[DEV], runs["cpu"]
+    if not all(torch.equal(a, b) for a, b in zip(m_gpu, m_cpu)):
+        raise AssertionError("streaming int8: masks differ, card vs CPU")
+    for k in p_cpu:
+        torch.testing.assert_close(p_gpu[k], p_cpu[k], atol=5e-5, rtol=1e-4)
+    err = max((p_gpu[k] - p_cpu[k]).abs().max().item() for k in p_cpu)
+    log(f"[train] card vs CPU, 3-NN streaming int8 diversefl, 3 injected "
+        f"rounds: masks equal, params max |err| {err:.3g} (TF32 off)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -733,6 +1113,7 @@ def main():
     phase_build()
     timings = phase_kernels(card)
     timings.update(phase_kernels_s2(card))
+    timings.update(phase_kernels_s3(card))
     counts = phase_train()
     phase_card_vs_cpu()
     # slice 2's main path: Fig. 4's fltrust run (the median run and the
@@ -741,8 +1122,13 @@ def main():
     counts.update({k: counts_s2[k] for k in ("masked_agg_update",
                                              "robust_aggregate")})
     phase_fig5(card)
+    # slice 3's main path: the streamed int8 diversefl run of [stream]
+    counts["dequant_fold_update"] = \
+        phase_stream(card)["dequant_fold_update"]
+    phase_comm(card)
     phase_vgg11(card)
     phase_card_vs_cpu_s2()
+    phase_card_vs_cpu_s3()
     kernels = []
     for name, meta in KERNEL_META.items():
         r = timings[name]

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from ..core.attacks import AttackConfig
+from .compression import get_codec, wire_bytes
 
 
 def _ratio(num: torch.Tensor, den: torch.Tensor, empty: float) -> torch.Tensor:
@@ -132,3 +133,26 @@ def make_eval_fn(model, fed, cfg):
             m["c1c2"] = logs["c1c2"]
         return m
     return eval_fn
+
+
+# ----------------------------------------------------------------------
+# Communication cost
+# ----------------------------------------------------------------------
+
+def comm_stats(cfg, d: int):
+    """Per-round wire traffic of one federated round, in bytes, as host
+    ints and floats.  Uplink is what the ``cfg.n_selected`` participating
+    clients send, each the codec's encoded size
+    (``fl/compression.wire_bytes``: payload plus any scale sidecar);
+    downlink is the server broadcasting the fp32 model to them (only the
+    client→server direction is compressed)."""
+    per_client = wire_bytes(get_codec(cfg.compression), d)
+    c = cfg.n_selected
+    dense = d * 4
+    return {
+        "uplink_bytes_per_client": int(per_client),
+        "uplink_bytes_per_round": int(c * per_client),
+        "downlink_bytes_per_round": int(c * dense),
+        "dense_uplink_bytes_per_round": int(c * dense),
+        "uplink_reduction": float(dense / per_client),
+    }

@@ -25,7 +25,7 @@ reference leaves them to XLA.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -35,6 +35,8 @@ from ..core.diversefl import DiverseFLConfig, criterion_logs, guiding_update
 from ..core.tee import Enclave
 from ..device import DeviceLike
 from ..kernels import ops as kops
+from .chunking import chunked_vmap
+from .compression import quantize_tree
 from .telemetry import AuditLog
 
 DEFAULT_IDENTITY = "diversefl-enclave-v1"
@@ -55,6 +57,10 @@ class AggregationContext:
     resample_s: int = 2                         # resampling s_R
     generator: Optional[torch.Generator] = None  # resampling's draw ...
     resample_ids: Optional[torch.Tensor] = None  # ... or its (N, s_R) ids
+    codec: Any = None                           # encoded update stream
+    #                                             (streaming rules decode)
+    stream_shards: Optional[int] = None         # streaming fold groups
+    stream_pods: Optional[int] = None           # two-tier pod groups
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,22 +236,37 @@ class SecureServer:
 
     # --- Step 3: guiding updates --------------------------------------
     def compute_guides(self, params, grad_fn, lr, E: int = 1,
-                       select: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       select: Optional[torch.Tensor] = None,
+                       client_chunk: Optional[int] = None,
+                       codec=None) -> torch.Tensor:
         """Δ̃_j from unsealed samples only — the sole guide-data path.
 
         ``params`` are the global (unbatched) params; ``grad_fn`` must
         accept client-batched params.  ``select`` restricts to the round's
-        participating clients (an index tensor).  Returns the flat (C, D)
-        fp32 guide matrix, columns in the layout of
+        participating clients (an index tensor).  ``client_chunk`` bounds
+        how many guides are computed at once (``fl/chunking.chunked_vmap``),
+        so Step 3 holds O(chunk) guides, not O(C).  ``codec`` (an
+        ``fl/compression.Codec``) quantize-dequantizes each guide per
+        tensor before the flattening, so that a compressed run compares
+        quantized updates against equally quantized guides; a lossless
+        codec (or None) changes nothing.  Returns the flat (C, D) fp32
+        guide matrix, columns in the layout of
         ``core.aggregators.flatten_updates``."""
         gx, gy = self.guide_batches()
         if select is not None:
             gx, gy = gx[select], gy[select]
-        c = gx.shape[0]
-        batched = {k: v.unsqueeze(0).expand((c,) + tuple(v.shape))
-                   for k, v in params.items()}
-        guides = guiding_update(batched, (gx, gy), grad_fn, lr, E)
-        return flatten_updates(guides)[0]
+
+        def flat_guides(x, y):
+            c = x.shape[0]
+            batched = {k: v.unsqueeze(0).expand((c,) + tuple(v.shape))
+                       for k, v in params.items()}
+            guides = guiding_update(batched, (x, y), grad_fn, lr, E)
+            if codec is not None:
+                # per tensor, before the ravel: the int8 blocks follow
+                # tensor boundaries, as the reference's do
+                guides = quantize_tree(codec, guides)
+            return flatten_updates(guides)[0]
+        return chunked_vmap(flat_guides, (gx, gy), client_chunk)
 
     def compute_root_update(self, params, grad_fn, lr, E: int, root_x,
                             root_y) -> torch.Tensor:
@@ -261,3 +282,13 @@ class SecureServer:
     @staticmethod
     def aggregate(name: str, U, ctx: AggregationContext):
         return aggregate(name, U, ctx)
+
+    @staticmethod
+    def streaming_aggregator(name: str, ctx: AggregationContext):
+        """The bound streaming AggState monoid for ``name``, the O(D)
+        counterpart of :meth:`aggregate` (``fl/streaming.py``), or None
+        when the rule exists only densely and the caller must fall back
+        to the (C, D) path."""
+        from .streaming import get_streaming    # streaming imports this
+        entry = get_streaming(name)             # module's registry
+        return None if entry is None else entry.bind(ctx)

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # one shared library per source; the key is the kernel module's name
 SOURCES = {"similarity": "similarity.cu", "masked_agg": "masked_agg.cu",
-           "robust_agg": "robust_agg.cu"}
+           "robust_agg": "robust_agg.cu", "dequant_fold": "dequant_fold.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

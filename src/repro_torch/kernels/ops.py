@@ -11,6 +11,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..core.diversefl import DiverseFLConfig, diversefl_mask
+from .dequant_fold import dequant_fold_update_cuda, dequant_fold_update_plain
 from .masked_agg import (masked_agg_cuda, masked_agg_plain,
                          masked_agg_update_cuda, masked_agg_update_plain)
 from .robust_agg import robust_agg_cuda, robust_agg_plain
@@ -20,7 +21,8 @@ from .similarity import similarity_cuda, similarity_plain
 KERNELS = {"similarity_stats": similarity_cuda,
            "masked_aggregate": masked_agg_cuda,
            "masked_agg_update": masked_agg_update_cuda,
-           "robust_aggregate": robust_agg_cuda}
+           "robust_aggregate": robust_agg_cuda,
+           "dequant_fold_update": dequant_fold_update_cuda}
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -49,11 +51,22 @@ def masked_aggregate(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def masked_agg_update(u: torch.Tensor, w: torch.Tensor,
                       acc: torch.Tensor) -> torch.Tensor:
-    """(n, D), (n,), (D,) -> a new (D,) ``acc + Σᵢ wᵢuᵢ`` (fp32 weights,
-    no normalisation; acc is not modified)."""
+    """(n, D) fp32 or bf16, (n,), (D,) -> a new (D,) ``acc + Σᵢ wᵢuᵢ``
+    (fp32 weights, no normalisation; acc is not modified)."""
     if _route(u, "masked_agg_update"):
         return masked_agg_update_cuda(u, w, acc)
     return masked_agg_update_plain(u, w, acc)
+
+
+def dequant_fold_update(q: torch.Tensor, scale: torch.Tensor,
+                        w: torch.Tensor, acc: torch.Tensor,
+                        qblock: int) -> torch.Tensor:
+    """int8 (n, D), fp32 (n, ⌈D/qblock⌉), (n,), (D,) -> a new (D,)
+    ``acc + Σᵢ wᵢ·(qᵢ ⊙ scaleᵢ)``: the int8 uplink's fold, decode fused
+    (acc is not modified)."""
+    if _route(q, "dequant_fold_update"):
+        return dequant_fold_update_cuda(q, scale, w, acc, qblock)
+    return dequant_fold_update_plain(q, scale, w, acc, qblock)
 
 
 def robust_aggregate(u: torch.Tensor, f: int = 0

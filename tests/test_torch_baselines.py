@@ -128,7 +128,8 @@ def test_ops_send_cpu_tensors_to_the_new_plain_versions():
     assert set(ops.launch_counts()) == {"similarity_stats",
                                         "masked_aggregate",
                                         "masked_agg_update",
-                                        "robust_aggregate"}
+                                        "robust_aggregate",
+                                        "dequant_fold_update"}
     assert not any(ops.launch_counts().values())
     with pytest.raises(ValueError, match="unsupported device"):
         ops.robust_aggregate(torch.empty((2, 8), device="meta"))

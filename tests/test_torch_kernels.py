@@ -17,6 +17,7 @@ from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro_torch.core.diversefl import DiverseFLConfig
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels.dequant_fold import dequant_fold_update_plain
 from repro_torch.kernels.masked_agg import masked_agg_cuda, masked_agg_plain
 from repro_torch.kernels.similarity import similarity_cuda, similarity_plain
 
@@ -86,10 +87,16 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
     assert torch.equal(ops.similarity_stats(ut, gt), similarity_plain(ut, gt))
     assert torch.equal(ops.masked_aggregate(ut, mask),
                        masked_agg_plain(ut, mask))
+    q = torch.from_numpy(np.resize(np.arange(-127, 128, dtype=np.int8),
+                                   (6, 130)))
+    scale, w, acc = torch.rand(6, 2), mask.float(), ut[0]
+    assert torch.equal(ops.dequant_fold_update(q, scale, w, acc, 128),
+                       dequant_fold_update_plain(q, scale, w, acc, 128))
     assert ops.launch_counts() == {"similarity_stats": 0,
                                    "masked_aggregate": 0,
                                    "masked_agg_update": 0,
-                                   "robust_aggregate": 0}
+                                   "robust_aggregate": 0,
+                                   "dequant_fold_update": 0}
 
 
 def test_ops_reject_devices_without_a_kernel_or_plain_route():

@@ -153,7 +153,10 @@ def test_paper_configuration_meets_the_reference_bars(paper_data):
     assert h_dfg["mask_tpr"][-1] == 1.0 and h_dfg["mask_fpr"][-1] == 0.0
     assert h_dfg["final_acc"] > h_mean["final_acc"] + 0.3
     assert set(h_dfl) == {"round", "acc", "mask_tpr", "mask_fpr", "c1c2",
-                          "final_acc", "params"}
+                          "final_acc", "params", "streaming_fallback",
+                          "uplink_bytes_per_client", "uplink_bytes_per_round",
+                          "downlink_bytes_per_round",
+                          "dense_uplink_bytes_per_round", "uplink_reduction"}
     assert h_dfl["round"] == [60] and h_dfl["c1c2"][-1].shape == (N_CLIENTS,)
     assert h_mean["mask_tpr"] == [] and h_mean["c1c2"] == []
 
