@@ -42,8 +42,26 @@ Phases (any failure raises and the script exits non-zero):
                clients, blocks of 64) on the 3-NN per codec.  [vgg11]:
                streaming int8 diversefl rounds.  [train]: streaming int8
                rounds on the card against the CPU's on injected draws
-  7. result  - a ``kernels`` JSON line, then ``{"ok": true, ...}`` last
+  7. slice 4 - [kernels-s4]: the flash attention kernel against its plain
+               version at h2o-danube-1.8b's prefill (2, 32/8 heads, 8192,
+               dh 80, window 4096), kernel_bench's (1, 8, 1024, 128), a
+               ragged S of 3000 with a window and MQA at dh 256 with a
+               softcap, each in bf16 and fp32; the selective scan at
+               falcon-mamba-7b's prefill (2, 4096, 8192, 16), kernel_bench's
+               (1, 512, 256, 16) and a ragged (1, 1000, 1000, 16); the int8
+               fold at [comm]'s (64, 199210); each timed cold and warm
+               beside its plain version, the library call and the bound.
+               [serve]: both models at full published size in bf16 through
+               the kernels: a timed prefill with exact launch counts (24
+               flash calls, 64 scans), the plain path beside it, greedy
+               serving of 4 requests (16-token prompt, 32 generated); then
+               their fp32 variants: kernel path vs plain path, decode vs
+               forward at T = 64 and, for Mamba, the prefill's state vs the
+               decode's.  [card-vs-cpu-s4]: the SMOKE configs in fp32 on the
+               card and the CPU, prefill logits and greedy tokens
+  8. result  - a ``kernels`` JSON line, then ``{"ok": true, ...}`` last
 """
+import dataclasses
 import json
 import math
 import os
@@ -57,6 +75,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import configs, models  # noqa: E402
+from repro_torch.convert import tree_from_jax, tree_to_numpy  # noqa: E402
 from repro_torch.core.attacks import AttackConfig  # noqa: E402
 from repro_torch.core.diversefl import masked_sum_fold  # noqa: E402
 from repro_torch.data import (FederatedData, make_cifar_like,  # noqa: E402
@@ -70,6 +90,10 @@ from repro_torch.fl.server import (AggregationContext,  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.dequant_fold import (  # noqa: E402
     dequant_fold_update_cuda, dequant_fold_update_plain, dequant_int8)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda, flash_attention_plain)
+from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,  # noqa: E402
+                                            mamba_scan_plain)
 from repro_torch.kernels.masked_agg import (masked_agg_cuda,  # noqa: E402
                                             masked_agg_plain,
                                             masked_agg_update_cuda,
@@ -78,10 +102,13 @@ from repro_torch.kernels.robust_agg import (robust_agg_cuda,  # noqa: E402
                                             robust_agg_plain)
 from repro_torch.kernels.similarity import (similarity_cuda,  # noqa: E402
                                             similarity_plain)
+from repro_torch.launch.serve import (make_prefill,  # noqa: E402
+                                      make_serve_step)
 from repro_torch.optim import inv_sqrt_lr  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 L2_BYTES = 50 * 2 ** 20          # H100 SXM L2
 COLD_BYTES = 4 * L2_BYTES        # a cold timing cycles over this many bytes
 MAIN_SHAPE = (23, 7850)          # 23 clients x softmax regression's D
@@ -108,6 +135,12 @@ KERNEL_META = {
     "dequant_fold_update": {
         "source": "src/repro_torch/kernels/csrc/dequant_fold.cu",
         "replaces": "src/repro/kernels/dequant_fold.py:40"},
+    "flash_attention": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:70"},
+    "mamba_scan": {
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:46"},
 }
 S2_SHAPE = (23, D_MLP3)          # the weighted fold's shape in Fig. 4
 ROBUST_SHAPES = [(23, 7850), S2_SHAPE, (24, 7850), (64, 7850), (23, D_VGG11)]
@@ -121,6 +154,25 @@ CHUNK = 8                        # the headline's client_chunk: 3 blocks
 S3_SHAPE = (CHUNK, D_MLP3)       # one int8 block of the 3-NN's clients
 S3_SHAPES = [S3_SHAPE, (23, D_MLP3), (64, D_MLP3), (23, 16411),
              (23, 2_000_000), (CHUNK, D_VGG11)]
+# slice 4.  Flash: (B, H, K, S, dh, window, softcap, tag); the first is
+# the main path's (h2o-danube-1.8b's prefill), kernel_bench's is
+# benchmarks/kernel_bench.py's shape
+FLASH_SHAPES = [(2, 32, 8, 8192, 80, 4096, None, "h2o-danube prefill"),
+                (1, 8, 8, 1024, 128, None, None, "kernel_bench"),
+                (1, 32, 8, 3000, 80, 1000, None, "ragged S, window"),
+                (1, 8, 1, 2048, 256, None, 30.0, "MQA dh 256 softcap")]
+# scan: (B, S, di, n, tag); the first is falcon-mamba-7b's prefill
+SCAN_SHAPES = [(2, 4096, 8192, 16, "falcon-mamba prefill"),
+               (1, 512, 256, 16, "kernel_bench"),
+               (1, 1000, 1000, 16, "ragged S, di"),
+               (1, 512, 256, 8, "SMOKE state size")]
+# [serve]: prefill (B, S) per model at full size in bf16; the fp32
+# variants' prefill, batch 1 for falcon-mamba (28 GB of fp32 params)
+SERVE_SHAPES = {"h2o-danube-1.8b": (2, 8192), "falcon-mamba-7b": (2, 4096)}
+FP32_SHAPES = {"h2o-danube-1.8b": (2, 8192), "falcon-mamba-7b": (1, 4096)}
+# greedy steps decoded from the bf16 prefill's cache: 1 checked against a
+# prefill of S + 1 tokens, then timed, then traced by the profiler
+LONG_STEPS = (1, 8, 4)
 
 
 def log(msg):
@@ -170,27 +222,43 @@ def cold_sets(*tensors):
 def time_kernel(card, name, shape, fns, inputs, bound, err, iters=200,
                 warmup=20):
     """Device times of a kernel, its plain version and the library call,
-    ``fns``, each called on ``inputs``: warm (one input set, L2-resident
-    where it fits) and cold (cycling over :func:`cold_sets`).  The cold
-    readings pair with the HBM ``bound`` and go into the JSON line."""
+    ``fns`` (the library call None where no PyTorch call computes the same
+    function), each called on ``inputs``: warm (one input set,
+    L2-resident where it fits) and cold (cycling over :func:`cold_sets`).
+    The cold readings pair with the HBM ``bound`` and go into the JSON
+    line; one that beats the bound fails the run, since the bound is
+    then not the least time the card could take."""
+    timed = [f for f in fns if f is not None]
     warm, cold = [inputs], cold_sets(*inputs)
-    (ms, host), (p_ms, p_host), (l_ms, _) = (
-        cuda_ms(f, cold, iters, warmup) for f in fns)
-    w_ms, w_p, w_l = (cuda_ms(f, warm, iters, warmup)[0] for f in fns)
+    cold_r = [cuda_ms(f, cold, iters, warmup) for f in timed]
+    warm_r = [cuda_ms(f, warm, iters, warmup)[0] for f in timed]
     del cold
+    (ms, host), (p_ms, p_host) = cold_r[:2]
+    w_ms, w_p = warm_r[:2]
+    l_ms = cold_r[2][0] if len(timed) == 3 else None
+    lib = "none" if l_ms is None else \
+        f"{l_ms * 1e3:.2f} / {warm_r[2] * 1e3:.2f} us"
+    beaten = {k: t for k, t in (("kernel", ms), ("plain", p_ms),
+                                ("library", l_ms))
+              if t is not None and t < bound[0]}
+    if beaten:
+        raise AssertionError(f"{name} {shape}: cold times {beaten} ms beat "
+                             f"the bound {bound[0]} ms, which is then no "
+                             f"lower bound")
     log(f"[kernels] {name} {shape}: device kernel {ms * 1e3:.2f} us cold "
         f"/ {w_ms * 1e3:.2f} us warm, plain {p_ms * 1e3:.2f} / "
-        f"{w_p * 1e3:.2f} us, library {l_ms * 1e3:.2f} / {w_l * 1e3:.2f} "
-        f"us, bound {bound[0] * 1e3:.3f} us ({bound[1]}, HBM); per call "
-        f"with host kernel {host * 1e3:.2f} us, plain {p_host * 1e3:.2f} "
-        f"us; max |err| {err:.3g} [{card}]")
+        f"{w_p * 1e3:.2f} us, library {lib}, bound {bound[0] * 1e3:.3f} us "
+        f"({bound[1]}, HBM); per call with host kernel {host * 1e3:.2f} us, "
+        f"plain {p_host * 1e3:.2f} us; max |err| {err:.3g} [{card}]")
     return dict(ms=ms, plain_ms=p_ms, library_ms=l_ms, bound=bound,
                 max_abs_err=err, warm_ms=w_ms)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
+    """The least time for the work: ``nbytes`` over the HBM rate or
+    ``flops`` over the card's peak for the inputs' type, the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1104,6 +1172,485 @@ def phase_card_vs_cpu_s3():
         f"rounds: masks equal, params max |err| {err:.3g} (TF32 off)")
 
 
+# ----------------------------------------------------------------------
+# slice 4: the model zoo's serving path (flash attention, the Mamba scan)
+# ----------------------------------------------------------------------
+
+def attn_pairs(S, window):
+    """(query, key) pairs inside the causal window of one (b, h)."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def check_flash(q, k, v, window, softcap):
+    """The flash kernel against its plain version (the reference's
+    formula): fp32 within atol 1e-4 / rtol 1e-4 (the online softmax sums
+    in another order); bf16 within rtol 2^-7 / atol 1e-5: both round an
+    fp32 value once to bf16, and two fp32 values ~1e-6 apart round at
+    most one bf16 step apart, which is at most 2^-7 of either."""
+    out = flash_attention_cuda(q, k, v, window, softcap)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q, k, v, window, softcap)
+    atol, rtol = (1e-4, 1e-4) if q.dtype == torch.float32 else \
+        (1e-5, 2.0 ** -7)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    return (out.float() - ref.float()).abs().max().item()
+
+
+def window_mask(S, window, device):
+    qp = torch.arange(S, device=device)[:, None]
+    kp = torch.arange(S, device=device)[None, :]
+    m = kp <= qp
+    if window is not None:
+        m &= kp > qp - window
+    return m
+
+
+def time_flash(card, gen):
+    timed = {}
+    for (B, H, K, S, dh, window, softcap, tag) in FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            qscale = 6.0 if softcap else 1.0      # scores reach the cap
+            q = (torch.randn((B, H, S, dh), generator=gen, device=DEV)
+                 * qscale).to(dtype)
+            k = torch.randn((B, K, S, dh), generator=gen, device=DEV
+                            ).to(dtype)
+            v = torch.randn((B, K, S, dh), generator=gen, device=DEV
+                            ).to(dtype)
+            err = check_flash(q, k, v, window, softcap)
+            nbytes = q.element_size() * (2 * q.numel() + k.numel()
+                                         + v.numel())
+            flops = 4 * dh * attn_pairs(S, window) * B * H
+            # the card's peak for the inputs' type: bf16 q, k, v feed the
+            # tensor cores exactly (fp32 accumulation), fp32 ones do not
+            peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else \
+                FP32_FLOPS_PER_S
+            shape = (B, H, K, S, dh, window, softcap, str(dtype)[6:])
+            iters, warm = (5, 2) if B * H * S >= 2 * 32 * 8192 else (50, 5)
+            lib = None
+            if not softcap:                       # sdpa has no softcap
+                mask = window_mask(S, window, DEV)
+
+                def lib(q, k, v, mask=mask):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, enable_gqa=True)
+            r = time_kernel(
+                card, f"flash_attention {tag}", shape,
+                (lambda q, k, v: flash_attention_cuda(q, k, v, window,
+                                                      softcap),
+                 lambda q, k, v: flash_attention_plain(q, k, v, window,
+                                                       softcap),
+                 lib),
+                (q, k, v), bound_ms(nbytes, flops, peak), err, iters, warm)
+            log(f"[kernels-s4] flash_attention {tag} {shape}: "
+                f"{flops / 1e9:.1f} GFLOP, bound "
+                f"{flops / peak * 1e3:.3f} ms at {peak / 1e12:.0f} TFLOP/s "
+                f"(the {str(dtype)[6:]} peak), {nbytes / 1e6:.1f} MB "
+                f"({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); kernel "
+                f"{flops / r['ms'] / 1e9:.2f} TFLOP/s; library "
+                f"{'none (no softcap in sdpa)' if lib is None else 'sdpa'} "
+                f"[{card}]")
+            timed[(tag, dtype)] = r
+            del q, k, v
+            torch.cuda.empty_cache()
+    return timed
+
+
+def time_scan(card, gen):
+    timed = {}
+    for (B, S, di, n, tag) in SCAN_SHAPES:
+        da = torch.exp(-torch.randn((B, S, di, n), generator=gen,
+                                    device=DEV).abs_())
+        dbx = torch.randn((B, S, di, n), generator=gen, device=DEV)
+        c = torch.randn((B, S, n), generator=gen, device=DEV)
+        y, h = mamba_scan_cuda(da, dbx, c)
+        torch.cuda.synchronize()
+        y_ref, h_ref = mamba_scan_plain(da, dbx, c)
+        # the kernel fuses dA h + dBx into one fma, the plain loop rounds
+        # twice: within 1e-4 of the largest magnitude
+        err = max((y - y_ref).abs().max().item(),
+                  (h - h_ref).abs().max().item())
+        scale = max(y_ref.abs().max().item(), h_ref.abs().max().item(), 1.0)
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"mamba_scan disagrees at {(B, S, di, n)}: "
+                                 f"max |err| {err} (scale {scale})")
+        nbytes = 4 * (2 * B * S * di * n + B * S * n + B * S * di
+                      + B * di * n)
+        iters, warm = (5, 2) if da.numel() > 2 ** 28 else (50, 5)
+        r = time_kernel(card, f"mamba_scan {tag}", (B, S, di, n),
+                        (mamba_scan_cuda, mamba_scan_plain,
+                         None),          # no single PyTorch call scans
+                        (da, dbx, c), bound_ms(nbytes, 4 * B * S * di * n),
+                        err, iters, warm)
+        log(f"[kernels-s4] mamba_scan {tag} {(B, S, di, n)}: y and final "
+            f"state max |err| {err:.3g} (scale {scale:.3g}), "
+            f"{nbytes / 1e9:.3f} GB, {nbytes / r['ms'] / 1e9:.3f} TB/s; "
+            f"library none [{card}]")
+        timed[tag] = r
+        del da, dbx, c, y, h, y_ref, h_ref
+        torch.cuda.empty_cache()
+    return timed
+
+
+def phase_kernels_s4(card):
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(1357)
+    flash = time_flash(card, gen)
+    scan = time_scan(card, gen)
+    # the int8 fold at [comm]'s block shape: 64 clients of the 3-NN
+    n, d = 64, D_MLP3
+    enc = get_codec("int8").encode(update_rows(n, d, gen))
+    q, scale = enc["q"], enc["scale"]
+    w = torch.rand((n,), generator=gen, device=DEV) * 2.0
+    acc = torch.randn((d,), generator=gen, device=DEV)
+    time_kernel(
+        card, "dequant_fold_update", (n, d),
+        (lambda q, s, w, a: dequant_fold_update_cuda(q, s, w, a, QBLOCK),
+         lambda q, s, w, a: dequant_fold_update_plain(q, s, w, a, QBLOCK),
+         lambda q, s, w, a: torch.addmv(a, dequant_int8(q, s, QBLOCK).T, w)),
+        (q, scale, w, acc),
+        bound_ms(n * d + 4 * n * scale.shape[1] + 4 * n + 8 * d, 3 * n * d),
+        check_dequant(q, scale, w, acc))
+    del q, scale, w, acc, enc
+    torch.cuda.empty_cache()
+    log(f"[kernels-s4] flash_attention and mamba_scan agree with their plain "
+        f"versions at every shape, bf16 and fp32 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"flash_attention": flash[(FLASH_SHAPES[0][-1], torch.bfloat16)],
+            "mamba_scan": scan[SCAN_SHAPES[0][-1]]}
+
+
+def zoo_counts(cfg=None):
+    """Launches of one prefill of ``cfg`` through the kernels (None: no
+    kernel at all): one flash call per attention layer, one scan per
+    Mamba layer."""
+    c = dict.fromkeys(ops.KERNELS, 0)
+    if cfg is not None:
+        c["mamba_scan" if cfg.attn_free else "flash_attention"] = \
+            cfg.n_layers
+    return c
+
+
+def greedy_serve(params, cfg, prompt, gen_len):
+    """The serving loop of examples/serve_decode.py through the port's
+    serve step: teacher-force the prompt, then argmax.  -> (tokens
+    (B, P + gen_len), ms per decode step)."""
+    B, P = prompt.shape
+    cache_len = P + gen_len
+    cache = models.init_cache(cfg, B, cache_len, prompt.device)
+    step = make_serve_step(cfg)
+    tok = prompt[:, :1]
+    out = [tok]
+    if prompt.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(cache_len - 1):
+        nxt, cache = step(params, tok, cache, t)
+        tok = prompt[:, t + 1:t + 2] if t + 1 < P else nxt
+        out.append(tok)
+    if prompt.is_cuda:
+        torch.cuda.synchronize()
+    return (torch.cat(out, dim=1),
+            (time.perf_counter() - t0) * 1e3 / (cache_len - 1))
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def check_bf16_logits(what, lg, ref, cfg):
+    """bf16 logits of two routes through the same model, which round
+    different fp32 values to bf16 in every layer: within 5e-2 of the
+    largest logit, and the next token equal wherever ``ref``'s top-two
+    margin exceeds twice that error.  -> a line for the log."""
+    err = (lg - ref).abs().max().item()
+    lmax = ref[..., :cfg.vocab_size].abs().max().item()
+    top = ref[:, 0, :cfg.vocab_size].topk(2, dim=-1).values
+    margin = top[:, 0] - top[:, 1]
+    agree = (lg.argmax(-1) == ref.argmax(-1))[:, 0]
+    if not err <= 5e-2 * lmax or not bool(agree[margin > 2 * err].all()):
+        raise AssertionError(f"{what}: max |err| {err} (largest logit "
+                             f"{lmax}), next tokens equal {agree.tolist()}, "
+                             f"top-2 margins {margin.tolist()}")
+    return (f"max |logit err| {err:.4g} (largest logit {lmax:.4g}), next "
+            f"token equal {agree.tolist()} (top-2 margins "
+            f"{[round(m, 4) for m in margin.tolist()]})")
+
+
+def decode_cache(cfg, pcache, B, S, cache_len):
+    """The decode cache that continues a prefill of S tokens: Mamba's conv
+    and SSM states as they are; an attention layer's K/V of every position
+    into the linear cache, a sliding-window layer's last ``window`` of
+    them into the ring at ``position % window``, where the decode step
+    looks for them."""
+    cache = models.init_cache(cfg, B, cache_len, DEV)
+    for li, (mixer, _) in enumerate(cfg.layout):
+        src, dst = pcache["groups"][li], cache["groups"][li]
+        if mixer == "mamba":
+            for key in dst:
+                dst[key].copy_(src[key])
+            continue
+        C = dst["k"].shape[2]
+        pos = torch.arange(max(S - C, 0), S, device=DEV)
+        slot = pos % C if mixer == "swa" else pos
+        for key in ("k", "v"):
+            dst[key][:, :, slot] = src[key][:, :, pos]
+    return cache
+
+
+def device_kernels(prof):
+    """[(device ms, kernel name)] of a torch.profiler trace, the largest
+    first: the events that ran on the card.  The host ops that launched
+    them carry the same time as their own "self device time", so they
+    are left out, as torch's own table total leaves them out."""
+    return sorted(((e.self_device_time_total / 1e3, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  reverse=True)
+
+
+def long_decode(card, arch, cfg, params, tokens, pcache, B, S):
+    """Greedy decode at the prefill's context: the bf16 prefill's cache
+    turned into the decode cache, one step checked against a prefill of
+    S + 1 tokens (a sliding-window layer's ring wraps there: position S
+    takes the slot of S - window), then steps timed on the wall clock,
+    then steps traced by the profiler for the card's busy share."""
+    n_check, n_timed, n_prof = LONG_STEPS
+    lg_ref, _ = make_prefill(cfg)(params, tokens[:, :S + 1])
+    cache = decode_cache(cfg, pcache, B, S, S + sum(LONG_STEPS))
+    step = make_serve_step(cfg)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        lg, cache = models.decode_step(params, cfg, tokens[:, S:S + 1],
+                                       cache, S)
+    line = check_bf16_logits(f"{arch} decode at position {S} vs a prefill "
+                             f"of {S + 1}", lg, lg_ref, cfg)
+    tok, t = lg.argmax(-1), S + n_check
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        tok, cache = step(params, tok, cache, t)
+        t += 1
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n_prof):
+            tok, cache = step(params, tok, cache, t)
+            t += 1
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    dev = sum(t for t, _ in kernels) / n_prof
+    if ops.launch_counts() != zoo_counts():
+        raise AssertionError(f"{arch} decode launched a kernel: "
+                             f"{ops.launch_counts()}")
+    top = "; ".join(f"{t / n_prof:.3f} ms {name[:60]}"
+                    for t, name in kernels[:4])
+    busy = (f"{dev:.3f} ms of device time per step (torch.profiler), "
+            f"{dev / step_ms:.1%} of the untraced step; per step the "
+            f"largest: {top}" if dev > 0 else
+            "device time not measured (the profiler saw none)")
+    swa = any(mixer == "swa" for mixer, _ in cfg.layout)
+    ring = f", ring of {cfg.window} wrapped" if swa and S >= cfg.window \
+        else ""
+    log(f"[serve] {arch} bf16 decode at the prefill's context ({B} requests "
+        f"x {S} tokens{ring}): the first step vs a prefill of {S + 1}: "
+        f"{line}; {step_ms:.2f} ms per greedy step over {n_timed}, {busy}; "
+        f"no kernel launched [{card}]")
+    del cache, lg_ref
+
+
+def serve_model(card, arch, B, S):
+    """One model of the zoo at its full published size in bf16 through the
+    kernels: the timed prefill (the counts set to 0 just before it and
+    read just after), decode at its context, the plain path's prefill
+    beside it, then greedy serving at a toy context."""
+    cfg = dataclasses.replace(configs.get(arch), use_kernels=True)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = models.init(gen, cfg, DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           device=DEV)
+    prefill = make_prefill(cfg)
+    prefill(params, tokens[:, :S])                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg, cache = prefill(params, tokens[:, :S])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if counts != zoo_counts(cfg):
+        raise AssertionError(f"{arch} prefill launches {counts}, expected "
+                             f"{zoo_counts(cfg)}")
+    if tuple(lg.shape) != (B, 1, cfg.padded_vocab) or \
+            not bool(torch.isfinite(lg[..., :cfg.vocab_size]).all()):
+        raise AssertionError(f"{arch} prefill logits {tuple(lg.shape)} are "
+                             f"not finite")
+    log(f"[serve] {arch} bf16 ({n_params / 1e9:.3f} B params, init "
+        f"{init_s:.2f} s): prefill {B} x {S} tokens {ms:.1f} ms, "
+        f"{B * S / ms * 1e3:.0f} tokens/s, peak {peak:.2f} GiB, launches "
+        f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+    long_decode(card, arch, cfg, params, tokens, cache, B, S)
+    del cache
+    ops.reset_launch_counts()
+    lg_p, _ = make_prefill(dataclasses.replace(cfg, use_kernels=False))(
+        params, tokens[:, :S])
+    torch.cuda.synchronize()
+    if ops.launch_counts() != zoo_counts():
+        raise AssertionError(f"{arch} plain prefill launched a kernel")
+    line = check_bf16_logits(f"{arch} bf16 kernel vs plain prefill", lg,
+                             lg_p, cfg)
+    log(f"[serve] {arch} bf16 prefill, kernels vs plain path: {line}")
+    prompt = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                           device=DEV)
+    greedy_serve(params, cfg, prompt[:, :2], 2)           # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    toks, step_ms = greedy_serve(params, cfg, prompt, 32)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if ops.launch_counts() != zoo_counts():
+        raise AssertionError(f"{arch} decode launched a kernel: "
+                             f"{ops.launch_counts()}")
+    gen_toks = toks[:, 16:]
+    if not bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{arch}: a generated token is outside the "
+                             f"vocab")
+    log(f"[serve] {arch} greedy serving at a toy context, 4 requests, "
+        f"16-token prompt teacher-forced, 32 generated: {step_ms:.2f} ms "
+        f"per decode step, peak {peak:.2f} GiB, no kernel launched; "
+        f"request 0: {gen_toks[0, :8].tolist()}... [{card}]")
+    del params, lg, lg_p
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_fp32(arch, B, S):
+    """The fp32 variant of a model at full size: the kernel-path prefill
+    against the plain path (within 2e-3 of the largest logit: both sum in
+    fp32, in other orders); then decode against the forward at T = 64
+    with attn_direct_max = 32, so that the forward runs the kernels, to
+    2e-3 as tests/test_decode_equivalence.py holds it; for Mamba, the
+    prefill's SSM and conv states against the teacher-forced decode's."""
+    cfg = dataclasses.replace(configs.get(arch), dtype="float32",
+                              param_dtype="float32", use_kernels=True)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    params = models.init(gen, cfg, DEV)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=DEV)
+    lg, _ = make_prefill(cfg)(params, tokens)
+    lg_p, _ = make_prefill(dataclasses.replace(cfg, use_kernels=False))(
+        params, tokens)
+    err = (lg - lg_p).abs().max().item()
+    lmax = lg_p[..., :cfg.vocab_size].abs().max().item()
+    if not err <= 2e-3 * max(lmax, 1.0):
+        raise AssertionError(f"{arch} fp32 kernel vs plain prefill: max "
+                             f"|err| {err} (largest logit {lmax})")
+    if not torch.equal(lg.argmax(-1), lg_p.argmax(-1)):
+        raise AssertionError(f"{arch} fp32: next tokens differ")
+    log(f"[serve] {arch} fp32 prefill {B} x {S}, kernels vs plain path: max "
+        f"|logit err| {err:.3g} (largest logit {lmax:.4g}), next tokens "
+        f"equal")
+    del lg, lg_p
+    T = 64
+    dcfg = dataclasses.replace(cfg, attn_direct_max=32)
+    toks = tokens[:1, :T]
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        out = models.apply(params, dcfg, toks, want_cache=True)
+        full = models.logits(params, dcfg, out["hidden"])
+        pcache = out["cache"]
+        if ops.launch_counts() != zoo_counts(cfg):
+            raise AssertionError(f"{arch}: the T = {T} forward did not run "
+                                 f"the kernels: {ops.launch_counts()}")
+        cache = models.init_cache(dcfg, 1, T, DEV)
+        dec = []
+        for t in range(T):
+            lg_t, cache = models.decode_step(params, dcfg, toks[:, t:t + 1],
+                                             cache, t)
+            dec.append(lg_t[:, 0])
+    dec = torch.stack(dec, dim=1)
+    torch.testing.assert_close(dec, full, rtol=2e-3, atol=2e-3)
+    msg = ""
+    if cfg.attn_free:
+        for key in ("ssm", "conv"):
+            torch.testing.assert_close(cache["groups"][0][key],
+                                       pcache["groups"][0][key],
+                                       rtol=2e-3, atol=2e-3)
+        h_pre = pcache["groups"][0]["ssm"]
+        serr = (cache["groups"][0]["ssm"] - h_pre).abs().max().item()
+        msg = (f"; the prefill's SSM state equals the teacher-forced "
+               f"decode's (max |err| {serr:.3g}, max |h| "
+               f"{h_pre.abs().max().item():.3g}), its conv state too")
+    log(f"[serve] {arch} fp32 decode vs forward, T = {T}: max |logit err| "
+        f"{(dec - full).abs().max().item():.3g} (rtol = atol = 2e-3){msg}")
+    del params, cache, pcache, out
+    torch.cuda.empty_cache()
+
+
+def phase_serve(card):
+    t0 = time.perf_counter()
+    counts = {}
+    for arch, (B, S) in SERVE_SHAPES.items():
+        c = serve_model(card, arch, B, S)
+        counts.update({k: v for k, v in c.items() if v})
+        check_fp32(arch, *FP32_SHAPES[arch])
+    log(f"[serve] both models at full published size: launches exact, the "
+        f"kernel path agrees with the plain path and decode with the "
+        f"forward ({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
+def phase_card_vs_cpu_s4():
+    """The SMOKE configs in fp32, the same params and tokens on the card
+    (through the kernels: attn_direct_max 16 < S = 40) and on the CPU
+    (their plain versions): prefill logits within 1e-4, greedy tokens
+    equal."""
+    t0 = time.perf_counter()
+    for arch in SERVE_SHAPES:
+        cfg = dataclasses.replace(configs.get(arch, smoke=True),
+                                  dtype="float32", param_dtype="float32",
+                                  use_kernels=True, attn_direct_max=16)
+        params = tree_to_numpy(models.init(torch.Generator().manual_seed(5),
+                                           cfg, "cpu"))
+        tokens = torch.from_numpy(
+            np.random.default_rng(23).integers(0, cfg.vocab_size, (4, 40)))
+        runs = {}
+        for dev in (DEV, "cpu"):
+            p = tree_from_jax(params, dev)
+            ops.reset_launch_counts()
+            lg, _ = make_prefill(cfg)(p, tokens.to(dev))
+            launched = ops.launch_counts()
+            toks, _ = greedy_serve(p, cfg, tokens[:, :16].to(dev), 32)
+            runs[dev] = (lg.cpu(), toks.cpu(), launched)
+        if runs[DEV][2] != zoo_counts(cfg) or runs["cpu"][2] != zoo_counts():
+            raise AssertionError(f"{arch} SMOKE launches {runs[DEV][2]} on "
+                                 f"the card, {runs['cpu'][2]} on the CPU")
+        torch.testing.assert_close(runs[DEV][0], runs["cpu"][0], atol=1e-4,
+                                   rtol=1e-4)
+        if not torch.equal(runs[DEV][1], runs["cpu"][1]):
+            raise AssertionError(f"{arch} SMOKE greedy tokens differ, card vs"
+                                 f" CPU")
+        err = (runs[DEV][0] - runs["cpu"][0]).abs().max().item()
+        log(f"[card-vs-cpu-s4] {cfg.name} fp32: prefill logits max |err| "
+            f"{err:.3g}, 4 x 32 greedy tokens equal")
+    log(f"[card-vs-cpu-s4] done ({time.perf_counter() - t0:.1f} s)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1114,6 +1661,7 @@ def main():
     timings = phase_kernels(card)
     timings.update(phase_kernels_s2(card))
     timings.update(phase_kernels_s3(card))
+    timings.update(phase_kernels_s4(card))
     counts = phase_train()
     phase_card_vs_cpu()
     # slice 2's main path: Fig. 4's fltrust run (the median run and the
@@ -1129,6 +1677,9 @@ def main():
     phase_vgg11(card)
     phase_card_vs_cpu_s2()
     phase_card_vs_cpu_s3()
+    # slice 4's main path: the timed prefills of [serve]
+    counts.update(phase_serve(card))
+    phase_card_vs_cpu_s4()
     kernels = []
     for name, meta in KERNEL_META.items():
         r = timings[name]
@@ -1138,6 +1689,9 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                         "bound_by": r["bound"][1],
                         "library_ms": r["library_ms"]})
+    # the card again near the end, where a reader of the output's tail
+    # finds it beside the numbers
+    log(f"[device] nvidia-smi: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,14 @@ launch error, and a tensor on any other device raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..core.diversefl import DiverseFLConfig, diversefl_mask
 from .dequant_fold import dequant_fold_update_cuda, dequant_fold_update_plain
+from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .mamba_scan import mamba_scan_cuda, mamba_scan_plain
 from .masked_agg import (masked_agg_cuda, masked_agg_plain,
                          masked_agg_update_cuda, masked_agg_update_plain)
 from .robust_agg import robust_agg_cuda, robust_agg_plain
@@ -22,7 +24,9 @@ KERNELS = {"similarity_stats": similarity_cuda,
            "masked_aggregate": masked_agg_cuda,
            "masked_agg_update": masked_agg_update_cuda,
            "robust_aggregate": robust_agg_cuda,
-           "dequant_fold_update": dequant_fold_update_cuda}
+           "dequant_fold_update": dequant_fold_update_cuda,
+           "flash_attention": flash_attention_cuda,
+           "mamba_scan": mamba_scan_cuda}
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -88,6 +92,51 @@ def diversefl_step45(u: torch.Tensor, g: torch.Tensor, cfg: DiverseFLConfig):
     dot, zz, gg = stats.unbind(1)
     mask = diversefl_mask(dot, zz, gg, cfg)
     return masked_aggregate(u, mask), mask, (dot, zz, gg)
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B,H,Sq,dh), k/v (B,K,Sk,dh) -> (B,H,Sq,dh) causal GQA attention
+    with an optional sliding window and tanh softcap, written into
+    ``out`` when given (any strides, unit stride along dh)."""
+    if _route(q, "flash_attention"):
+        return flash_attention_cuda(q, k, v, window, softcap, out=out)
+    o = flash_attention_plain(q, k, v, window, softcap)
+    return o if out is None else out.copy_(o)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Model-layout adapter: q (B,S,H,dh), k/v (B,S,K,dh) -> (B,S,H,dh).
+    The kernel reads and writes the model's layout through strides: the
+    transposes here are views, nothing is copied."""
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), window, softcap,
+                         out=out.transpose(1, 2))
+    return out
+
+
+def mamba_scan_raw(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dA, dBx (B,S,di,n), C (B,S,n) fp32 -> (y (B,S,di), final state
+    (B,di,n)) of h_t = dA_t·h_{t-1} + dBx_t, y_t = <h_t, C_t>."""
+    if _route(da, "mamba_scan"):
+        return mamba_scan_cuda(da, dbx, c)
+    return mamba_scan_plain(da, dbx, c)
+
+
+def mamba_scan(xc: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model adapter: post-conv activations (B,S,di) -> (scan output
+    (B,S,di) fp32, final state (B,di,n) fp32).  The reference's adapter
+    returns the output only; the port's prefill also hands the state to
+    decode."""
+    from ..models.mamba import _ssm_coeffs
+    da, dbx, c = _ssm_coeffs(xc, p, cfg)
+    return mamba_scan_raw(da, dbx, c)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,0 +1,62 @@
+"""Serving: the batched prefill forward and one greedy decode step
+against the KV/SSM cache.  The counterpart of ``repro/launch/serve.py``.
+
+The reference jits each function under a mesh; the port runs eagerly on
+one card (sharding is slice S6), so the functions take no mesh.  Each
+runs under ``torch.inference_mode()``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import models
+
+
+def make_serve_step(cfg):
+    """serve_step(params, token (B,1), cache, cache_index)
+       -> (next_token (B,1) int64, new_cache).
+
+    Greedy: the next token is the argmax of the step's logits.  The cache
+    is updated IN PLACE (the KV entries at ``cache_index``, the SSM and
+    conv states) and new_cache holds the same tensors: the reference
+    donates the cache to this step (``donate_argnums=(2,)``), so no
+    caller reads its old contents."""
+
+    @torch.inference_mode()
+    def serve_fn(params, token, cache, cache_index):
+        lg, new_cache = models.decode_step(params, cfg, token, cache,
+                                           cache_index)
+        return torch.argmax(lg, dim=-1), new_cache
+
+    return serve_fn
+
+
+def make_prefill(cfg):
+    """prefill(params, tokens (B,S)) -> (last-position logits (B,1,V),
+    cache).  The cache is the forward's: K/V of every position for the
+    attention layers, the conv inputs and final SSM state for Mamba."""
+
+    @torch.inference_mode()
+    def prefill_fn(params, tokens, enc_emb=None, cross_emb=None):
+        out = models.apply(params, cfg, tokens, enc_emb=enc_emb,
+                           cross_emb=cross_emb, want_cache=True)
+        return models.logits(params, cfg, out["hidden"][:, -1:, :]), \
+            out["cache"]
+
+    return prefill_fn
+
+
+def make_forward(cfg):
+    """forward(params, tokens (B,S)) -> the mean next-token loss of the
+    full-sequence forward (fp32 scalar)."""
+
+    @torch.inference_mode()
+    def fwd(params, tokens, enc_emb=None, cross_emb=None):
+        batch = {"tokens": tokens}
+        if enc_emb is not None:
+            batch["enc_emb"] = enc_emb
+        if cross_emb is not None:
+            batch["cross_emb"] = cross_emb
+        return models.loss_fn(params, cfg, batch)
+
+    return fwd

@@ -1,0 +1,308 @@
+"""Model assembly of the zoo: embedding, the stacked layout groups, the
+loss, prefill and decode.  The counterpart of ``repro/models/model.py``.
+
+Params layout (the reference's pytree, with torch tensors as leaves)::
+
+  {"embed": (V, D),
+   "prelude": [first_k_dense blocks, unstacked],
+   "groups": tuple(len(layout)) of block dicts, leaves lead with n_groups,
+   "final_norm": {...}}
+
+The reference scans the groups with ``jax.lax.scan`` (and checkpoints the
+body when ``cfg.remat``); the port runs them in a Python loop, indexing
+the stacked leaves.  The ``moe`` FFN, the ``xattn``/``attn_x`` mixers and
+the encoder are not ported yet and raise (ROADMAP.md, queue 1, item 16).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from .attention import make_attn_params, self_attention
+from .config import ModelConfig, torch_dtype
+from .layers import (apply_mlp, apply_norm, dense_init, make_mlp_params,
+                     make_norm_params)
+from .mamba import init_mamba_cache, make_mamba_params, mamba_mixer
+
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1, item 16: MoE, "
+               "cross attention and the encoder are the next model slice)")
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} {_NOT_PORTED}")
+
+
+# ----------------------------------------------------------------------
+# Init
+# ----------------------------------------------------------------------
+
+def _make_block_params(gen, cfg: ModelConfig, entry, device, lead=(),
+                       force_mlp=False):
+    mixer, ffn = entry
+    p = {"ln1": make_norm_params(gen, cfg, device, lead=lead)}
+    if mixer in ("attn", "swa"):
+        p["attn"] = make_attn_params(gen, cfg, device, lead=lead)
+    elif mixer == "mamba":
+        p["mamba"] = make_mamba_params(gen, cfg, device, lead=lead)
+    elif mixer in ("xattn", "attn_x"):
+        raise _not_ported(f"the {mixer!r} mixer")
+    else:
+        raise ValueError(mixer)
+    if force_mlp:
+        ffn = "mlp"
+    if ffn == "mlp":
+        p["ln2"] = make_norm_params(gen, cfg, device, lead=lead)
+        p["mlp"] = make_mlp_params(gen, cfg, device, lead=lead)
+    elif ffn == "moe":
+        raise _not_ported("the 'moe' FFN")
+    elif ffn != "none":
+        raise ValueError(ffn)
+    return p
+
+
+def init(gen: Optional[torch.Generator], cfg: ModelConfig,
+         device: DeviceLike = None):
+    """Random parameters from ``gen``, built leaf by leaf in
+    ``cfg.param_dtype`` directly on ``device`` (the card unless given; on
+    ``"meta"`` nothing is drawn or stored)."""
+    dev = resolve_device(device)
+    if cfg.is_enc_dec:
+        raise _not_ported("the encoder")
+    params = {"embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model),
+                                  cfg.param_dtype, dev, fan_in=cfg.d_model),
+              "final_norm": make_norm_params(gen, cfg, dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
+                                       cfg.param_dtype, dev)
+    if cfg.first_k_dense:
+        params["prelude"] = [_make_block_params(gen, cfg, ("attn", "mlp"),
+                                                dev)
+                             for _ in range(cfg.first_k_dense)]
+    params["groups"] = tuple(
+        _make_block_params(gen, cfg, e, dev, lead=(cfg.n_groups,))
+        for e in cfg.layout)
+    return params
+
+
+# ----------------------------------------------------------------------
+# Blocks
+# ----------------------------------------------------------------------
+
+def _index(tree, g: int):
+    """The g-th entry of every stacked leaf (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def _write_into(dst, src) -> None:
+    """Copy each leaf of ``src`` into the same leaf of ``dst`` unless it
+    already is that storage (a KV cache written in place)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write_into(dst[k], src[k])
+    elif src.data_ptr() != dst.data_ptr():
+        dst.copy_(src)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _run_block(x, bp, entry, cfg: ModelConfig, positions, cross_emb,
+               cache, cache_index):
+    mixer, ffn = entry
+    h = apply_norm(x, bp["ln1"], cfg)
+    if mixer in ("attn", "swa"):
+        window = cfg.window if mixer == "swa" else None
+        o, new_cache = self_attention(h, bp["attn"], cfg, positions, window,
+                                      cache=cache, cache_index=cache_index)
+    elif mixer == "mamba":
+        o, new_cache = mamba_mixer(h, bp["mamba"], cfg, cache, cache_index)
+    elif mixer in ("xattn", "attn_x"):
+        raise _not_ported(f"the {mixer!r} mixer")
+    else:
+        raise ValueError(mixer)
+    x = x + o
+    if "moe" in bp or ffn == "moe":
+        raise _not_ported("the 'moe' FFN")
+    if "mlp" in bp:
+        x = x + apply_mlp(apply_norm(x, bp["ln2"], cfg), bp["mlp"], cfg)
+    return x, new_cache
+
+
+def _scan_groups(x, groups, cfg: ModelConfig, positions, cross_emb,
+                 cache, cache_index, decode, collect_cache=False):
+    """Run every layout group in order.  decode: the group caches are
+    updated in place and ``cache`` is returned; collect_cache: the
+    forward's caches come back stacked like the params; else None."""
+    collected = [[] for _ in cfg.layout]
+    for g in range(cfg.n_groups):
+        for li, entry in enumerate(cfg.layout):
+            c_in = None if cache is None else _index(cache[li], g)
+            x, nc = _run_block(x, _index(groups[li], g), entry, cfg,
+                               positions, cross_emb, c_in, cache_index)
+            if decode:
+                _write_into(c_in, nc)
+            elif collect_cache:
+                collected[li].append(nc)
+    if decode:
+        return x, cache
+    if collect_cache:
+        return x, tuple(_stack(c) for c in collected)
+    return x, None
+
+
+# ----------------------------------------------------------------------
+# Forward / prefill
+# ----------------------------------------------------------------------
+
+def _embed(params, cfg: ModelConfig, tokens):
+    dt = torch_dtype(cfg.dtype)
+    x = params["embed"][tokens].to(dt)
+    if cfg.norm == "rmsnorm":
+        # sqrt(d_model) rounded to the activation dtype first, as the
+        # reference's jnp.sqrt(d).astype(dtype)
+        x = x * torch.tensor(math.sqrt(cfg.d_model),
+                             dtype=torch.float32).to(dt)
+    return x
+
+
+def apply(params, cfg: ModelConfig, tokens, *, enc_emb=None, cross_emb=None,
+          positions=None, want_cache=False):
+    """Full-sequence forward.  Returns dict(hidden, aux, cache?)."""
+    if cfg.is_enc_dec or enc_emb is not None:
+        raise _not_ported("the encoder")
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int64,
+                                 device=tokens.device).expand(B, S)
+    x = _embed(params, cfg, tokens)
+
+    prelude_cache = []
+    for bp in params.get("prelude", []):
+        x, nc = _run_block(x, bp, ("attn", "mlp"), cfg, positions, cross_emb,
+                           None, None)
+        prelude_cache.append(nc)
+    x, cache = _scan_groups(x, params["groups"], cfg, positions, cross_emb,
+                            None, None, decode=False,
+                            collect_cache=want_cache)
+    x = apply_norm(x, params["final_norm"], cfg)
+    out = {"hidden": x,
+           "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    if want_cache:
+        out["cache"] = {"prelude": prelude_cache, "groups": cache}
+    return out
+
+
+def _mask_pad_logits(lg, cfg: ModelConfig):
+    if cfg.padded_vocab == cfg.vocab_size:
+        return lg
+    col = torch.arange(cfg.padded_vocab, device=lg.device)
+    return torch.where(col < cfg.vocab_size, lg, -1e30)
+
+
+def _head(params):
+    w = params.get("lm_head")
+    return params["embed"].T if w is None else w
+
+
+def logits(params, cfg: ModelConfig, hidden):
+    """fp32 logits (..., padded_vocab); the pad columns are -1e30."""
+    return _mask_pad_logits(hidden.float() @ _head(params).float(), cfg)
+
+
+# ----------------------------------------------------------------------
+# Loss: cross entropy in token chunks (never all logits at once)
+# ----------------------------------------------------------------------
+
+def lm_loss(params, cfg: ModelConfig, hidden, targets, mask):
+    """hidden: (B,S,D); targets/mask: (B,S)."""
+    B, S, D = hidden.shape
+    w = _head(params).float()                                 # (D, V)
+    T = B * S
+    h = hidden.reshape(T, D)
+    t = targets.reshape(T)
+    m = mask.reshape(T).float()
+    Q = min(cfg.loss_chunk, T)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, T, Q):
+        lg = _mask_pad_logits(h[s0:s0 + Q].float() @ w, cfg)
+        lse = torch.logsumexp(lg, dim=-1)
+        correct = torch.gather(lg, 1, t[s0:s0 + Q, None])[:, 0]
+        total = total + torch.sum((lse - correct) * m[s0:s0 + Q])
+    return total / torch.clamp_min(m.sum(), 1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """batch: {"tokens": (B,S), optional "mask"}."""
+    tokens = batch["tokens"]
+    out = apply(params, cfg, tokens, enc_emb=batch.get("enc_emb"),
+                cross_emb=batch.get("cross_emb"))
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                        dim=1)
+    mask = batch.get("mask")
+    mask = torch.ones_like(tokens) if mask is None else mask.clone()
+    mask[:, -1] = 0
+    return lm_loss(params, cfg, out["hidden"], targets, mask) + out["aux"]
+
+
+# ----------------------------------------------------------------------
+# Decode (single token against a cache)
+# ----------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device: DeviceLike = None):
+    """Zero cache matching the layout (group leaves lead with n_groups)."""
+    dev = resolve_device(device)
+    K, dh = cfg.n_kv_heads, cfg.head_dim
+    dt = torch_dtype(cfg.dtype)
+
+    def entry_cache(entry, lead):
+        mixer, _ = entry
+        if mixer in ("attn", "swa"):
+            C = cache_len if mixer == "attn" else min(cfg.window, cache_len)
+            shape = lead + (batch, C, K, dh)
+            return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                    "v": torch.zeros(shape, dtype=dt, device=dev)}
+        if mixer == "mamba":
+            return init_mamba_cache(cfg, batch, dev, lead)
+        if mixer in ("xattn", "attn_x"):
+            raise _not_ported(f"the {mixer!r} mixer")
+        raise ValueError(mixer)
+
+    cache = {"groups": tuple(entry_cache(e, (cfg.n_groups,))
+                             for e in cfg.layout)}
+    if cfg.first_k_dense:
+        cache["prelude"] = [entry_cache(("attn", "mlp"), ())
+                            for _ in range(cfg.first_k_dense)]
+    return cache
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, cache_index):
+    """token: (B,1) integer; cache_index: the absolute position (int).
+
+    Returns (logits (B,1,V), new_cache).  The cache is updated IN PLACE
+    and new_cache holds the same tensors: the reference donates it."""
+    B = token.shape[0]
+    t = int(cache_index)
+    positions = torch.full((B, 1), t, dtype=torch.int64, device=token.device)
+    x = _embed(params, cfg, token)
+    new_prelude = []
+    for bp, pc in zip(params.get("prelude", []), cache.get("prelude", [])):
+        x, nc = _run_block(x, bp, ("attn", "mlp"), cfg, positions, None, pc,
+                           t)
+        _write_into(pc, nc)
+        new_prelude.append(pc)
+    x, new_groups = _scan_groups(x, params["groups"], cfg, positions, None,
+                                 cache["groups"], t, decode=True)
+    x = apply_norm(x, params["final_norm"], cfg)
+    new_cache = {"groups": new_groups}
+    if new_prelude:
+        new_cache["prelude"] = new_prelude
+    return logits(params, cfg, x), new_cache

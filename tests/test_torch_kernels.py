@@ -96,7 +96,9 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
                                    "masked_aggregate": 0,
                                    "masked_agg_update": 0,
                                    "robust_aggregate": 0,
-                                   "dequant_fold_update": 0}
+                                   "dequant_fold_update": 0,
+                                   "flash_attention": 0,
+                                   "mamba_scan": 0}
 
 
 def test_ops_reject_devices_without_a_kernel_or_plain_route():
