@@ -13,13 +13,17 @@ Phases (any failure raises and the script exits non-zero):
                their plain PyTorch versions at (23, 7850), (23, 199210),
                (1024, 7850), (23, 16411) and the small CNN's and VGG-11's
                widths (23, 117706), (23, 28146762), with bool, fp32 and
-               all-false masks; bitwise repeatability; CUDA-event timings
-               of kernel, plain version and one PyTorch library call, with
-               inputs cold (read from HBM, as the byte bound assumes) and
-               warm (L2-resident where they fit).  Slice 2: the weighted
-               fold at those shapes, and the median/trimmed-mean kernel at
-               (23, 7850), (23, 199210), (24, 7850), (64, 7850),
-               (23, 28146762) with f in {0, 5} and exact ties, timed likewise
+               all-false masks; the masked mean and the weighted fold (fp32
+               and bf16 payloads) at N in (1, 7, 8, 9, 33, 64) x 7850, both
+               register chunkings and their ragged ends, bitwise the left
+               fold for 0/1 weights; bitwise repeatability; CUDA-event
+               timings of kernel, plain version and one PyTorch library
+               call, with inputs cold (read from HBM, as the byte bound
+               assumes) and warm (L2-resident where they fit).  Slice 2:
+               the weighted fold at those shapes, and the median/trimmed-
+               mean kernel at (23, 7850), (23, 199210), (24, 7850),
+               (64, 7850), (23, 28146762) with f in {0, 5} and exact ties,
+               timed likewise
   4. train   - slice 1: the paper's configuration (softmax regression, 23
                clients, f = 5, 60 rounds): diversefl/oracle under sign_flip
                and diversefl/mean under gaussian, with the reference's
@@ -42,11 +46,15 @@ Phases (any failure raises and the script exits non-zero):
                clients, blocks of 64) on the 3-NN per codec.  [vgg11]:
                streaming int8 diversefl rounds.  [train]: streaming int8
                rounds on the card against the CPU's on injected draws
-  7. slice 4 - [kernels-s4]: the flash attention kernel against its plain
-               version at h2o-danube-1.8b's prefill (2, 32/8 heads, 8192,
-               dh 80, window 4096), kernel_bench's (1, 8, 1024, 128), a
-               ragged S of 3000 with a window and MQA at dh 256 with a
-               softcap, each in bf16 and fp32; the selective scan at
+  7. slice 4 - [kernels-s4]: the flash attention kernels against their
+               plain version at h2o-danube-1.8b's prefill (2, 32/8 heads,
+               8192, dh 80, window 4096), kernel_bench's (1, 8, 1024, 128),
+               a ragged S of 3000 with a window, MQA at dh 256 with a
+               softcap, dh 72 with a window and minitron-8b's heads (32/8,
+               dh 128, S 4096), each in bf16 (the tensor-core kernel, held
+               to its derived error bound and to the exact mask probe) and
+               fp32 (the SIMT kernel, 1e-4); sdpa with the mask and, where
+               there is no window, is_causal beside them; the scan at
                falcon-mamba-7b's prefill (2, 4096, 8192, 16), kernel_bench's
                (1, 512, 256, 16) and a ragged (1, 1000, 1000, 16); the int8
                fold at [comm]'s (64, 199210); each timed cold and warm
@@ -91,7 +99,8 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.dequant_fold import (  # noqa: E402
     dequant_fold_update_cuda, dequant_fold_update_plain, dequant_int8)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_plain)
+    bf16_error_bound, flash_attention_cuda, flash_attention_plain,
+    mask_probe_inputs)
 from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,  # noqa: E402
                                             mamba_scan_plain)
 from repro_torch.kernels.masked_agg import (masked_agg_cuda,  # noqa: E402
@@ -135,8 +144,8 @@ KERNEL_META = {
     "dequant_fold_update": {
         "source": "src/repro_torch/kernels/csrc/dequant_fold.cu",
         "replaces": "src/repro/kernels/dequant_fold.py:40"},
-    "flash_attention": {
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": {      # the main path's bf16 kernel
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
         "replaces": "src/repro/kernels/flash_attention.py:70"},
     "mamba_scan": {
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -156,11 +165,17 @@ S3_SHAPES = [S3_SHAPE, (23, D_MLP3), (64, D_MLP3), (23, 16411),
              (23, 2_000_000), (CHUNK, D_VGG11)]
 # slice 4.  Flash: (B, H, K, S, dh, window, softcap, tag); the first is
 # the main path's (h2o-danube-1.8b's prefill), kernel_bench's is
-# benchmarks/kernel_bench.py's shape
+# benchmarks/kernel_bench.py's shape; dh 72 is padded to the bf16 kernel's
+# bucket of 80; the last has minitron-8b's heads (32/8, dh 128)
 FLASH_SHAPES = [(2, 32, 8, 8192, 80, 4096, None, "h2o-danube prefill"),
                 (1, 8, 8, 1024, 128, None, None, "kernel_bench"),
                 (1, 32, 8, 3000, 80, 1000, None, "ragged S, window"),
-                (1, 8, 1, 2048, 256, None, 30.0, "MQA dh 256 softcap")]
+                (1, 8, 1, 2048, 256, None, 30.0, "MQA dh 256 softcap"),
+                (1, 16, 4, 2000, 72, 700, None, "dh 72, window"),
+                (1, 32, 8, 4096, 128, None, None, "minitron-8b heads")]
+# masked_aggregate's client counts at S1's D: both register chunkings (8
+# rows up to N = 8, 32 above) and their ragged ends
+MASKED_NS = (1, 7, 8, 9, 33, 64)
 # scan: (B, S, di, n, tag); the first is falcon-mamba-7b's prefill
 SCAN_SHAPES = [(2, 4096, 8192, 16, "falcon-mamba prefill"),
                (1, 512, 256, 16, "kernel_bench"),
@@ -373,10 +388,47 @@ def phase_kernels(card):
         rows[(n, d)] = t
         del z
         torch.cuda.empty_cache()
+    check_masked_ragged(gen)
     log("[kernels] every kernel agrees with its plain version, repeats "
         "bitwise, and maps an all-false mask to exactly 0, at every model "
         "width up to VGG-11's")
     return rows[MAIN_SHAPE]
+
+
+def check_masked_ragged(gen):
+    """The masked-mean kernel's register chunks of 16 clients at the ragged
+    ends of N (MASKED_NS x S1's D): bool, fp32 and all-false masks against
+    the plain version and bitwise repeatable; 0/1 masks bitwise the left
+    fold; the weighted fold's accumulator path in fp32 and with a bf16
+    payload, bitwise the left fold for 0/1 weights."""
+    d = MAIN_SHAPE[1]
+    for n in MASKED_NS:
+        z = torch.randn((n, d), generator=gen, device="cuda")
+        mask = torch.rand((n,), generator=gen, device="cuda") > 0.3
+        mask[0] = True                  # at least one client kept
+        check_masked(z, torch.rand((n,), generator=gen, device="cuda"))
+        empty, _ = check_masked(z, torch.zeros_like(mask))
+        if not bool((empty == 0).all()):
+            raise AssertionError(f"all-false mask is not exactly 0 at {(n, d)}")
+        for m in (mask, mask.to(torch.float32)):
+            check_masked(z, m)
+            s, cnt = masked_sum_fold(z, m)
+            if not torch.equal(masked_agg_cuda(z, m), s / cnt.clamp_min(1.0)):
+                raise AssertionError(f"masked_aggregate is not bitwise the "
+                                     f"left fold at {(n, d)}")
+        w = torch.rand((n,), generator=gen, device="cuda") * 2.0
+        acc = torch.randn((d,), generator=gen, device="cuda")
+        m01 = mask.to(torch.float32)
+        for u in (z, z.to(torch.bfloat16)):
+            check_update(u, w, acc)
+            if not torch.equal(masked_agg_update_cuda(u, m01, acc),
+                               masked_agg_update_plain(u, m01, acc)):
+                raise AssertionError(f"{u.dtype} masked_agg_update is not "
+                                     f"bitwise the left fold at {(n, d)}")
+    log(f"[kernels] masked_aggregate at N in {MASKED_NS} x D = {d}: bool, "
+        f"fp32 and all-false masks agree and repeat bitwise, 0/1 masks are "
+        f"bitwise the left fold; masked_agg_update's fp32 and bf16 "
+        f"payloads likewise")
 
 
 def make_federation_data():
@@ -1185,18 +1237,39 @@ def attn_pairs(S, window):
 
 def check_flash(q, k, v, window, softcap):
     """The flash kernel against its plain version (the reference's
-    formula): fp32 within atol 1e-4 / rtol 1e-4 (the online softmax sums
-    in another order); bf16 within rtol 2^-7 / atol 1e-5: both round an
-    fp32 value once to bf16, and two fp32 values ~1e-6 apart round at
-    most one bf16 step apart, which is at most 2^-7 of either."""
+    formula).  fp32: within atol 1e-4 / rtol 1e-4 (the online softmax sums
+    in another order).  bf16, two checks: (a) on these random inputs,
+    within ``bf16_error_bound`` (1e-5 + 2^-7·|ref| + 2^-7·Σp|v|/l: the
+    kernel rounds p to bf16 for the p·v product, which moves an output
+    that cancels toward 0 by more than one bf16 step of itself); (b) the
+    mask probe (q = 0, one-hot v: p = 1 exactly, so nothing rounds but the
+    output) within atol 1e-5 / rtol 2^-7, one bf16 step: a key wrongly
+    admitted or dropped moves a column by about 2 % at h2o-danube's
+    window.  -> (max |err| on the random inputs, on the probe)."""
     out = flash_attention_cuda(q, k, v, window, softcap)
     torch.cuda.synchronize()
     ref = flash_attention_plain(q, k, v, window, softcap)
-    atol, rtol = (1e-4, 1e-4) if q.dtype == torch.float32 else \
-        (1e-5, 2.0 ** -7)
-    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
-                               rtol=rtol)
-    return (out.float() - ref.float()).abs().max().item()
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-4,
+                                   rtol=1e-4)
+        return (out.float() - ref.float()).abs().max().item(), None
+    err = (out.float() - ref.float()).abs()
+    bound = bf16_error_bound(q, k, v, window, softcap, ref=ref)
+    if not bool((err <= bound).all()) or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"bf16 flash_attention outside its error bound "
+                             f"at {tuple(q.shape)}: max |err| "
+                             f"{err.max().item()}, max |err| / bound "
+                             f"{(err / bound).max().item()}")
+    del bound, ref, out
+    B, H, S, dh = q.shape
+    pq, pk, pv = mask_probe_inputs(B, H, k.shape[1], S, dh, q.dtype, DEV)
+    out = flash_attention_cuda(pq, pk, pv, window, softcap)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(pq, pk, pv, window, softcap)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-5,
+                               rtol=2.0 ** -7)
+    return err.max().item(), (out.float() - ref.float()).abs().max().item()
 
 
 def window_mask(S, window, device):
@@ -1219,7 +1292,7 @@ def time_flash(card, gen):
                             ).to(dtype)
             v = torch.randn((B, K, S, dh), generator=gen, device=DEV
                             ).to(dtype)
-            err = check_flash(q, k, v, window, softcap)
+            err, probe_err = check_flash(q, k, v, window, softcap)
             nbytes = q.element_size() * (2 * q.numel() + k.numel()
                                          + v.numel())
             flops = 4 * dh * attn_pairs(S, window) * B * H
@@ -1228,7 +1301,7 @@ def time_flash(card, gen):
             peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else \
                 FP32_FLOPS_PER_S
             shape = (B, H, K, S, dh, window, softcap, str(dtype)[6:])
-            iters, warm = (5, 2) if B * H * S >= 2 * 32 * 8192 else (50, 5)
+            iters, warm = (5, 2) if flops > 1e11 else (50, 5)
             lib = None
             if not softcap:                       # sdpa has no softcap
                 mask = window_mask(S, window, DEV)
@@ -1236,6 +1309,7 @@ def time_flash(card, gen):
                 def lib(q, k, v, mask=mask):
                     return torch.nn.functional.scaled_dot_product_attention(
                         q, k, v, attn_mask=mask, enable_gqa=True)
+            bound = bound_ms(nbytes, flops, peak)
             r = time_kernel(
                 card, f"flash_attention {tag}", shape,
                 (lambda q, k, v: flash_attention_cuda(q, k, v, window,
@@ -1243,15 +1317,33 @@ def time_flash(card, gen):
                  lambda q, k, v: flash_attention_plain(q, k, v, window,
                                                        softcap),
                  lib),
-                (q, k, v), bound_ms(nbytes, flops, peak), err, iters, warm)
+                (q, k, v), bound, err, iters, warm)
+            sdpa = ("none (no softcap in sdpa)" if lib is None else
+                    f"sdpa with the mask {r['library_ms'] * 1e3:.2f} us")
+            if window is None and not softcap:
+                # without a window sdpa may take its own flash backend
+                causal = cuda_ms(
+                    lambda q, k, v: torch.nn.functional.
+                    scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 enable_gqa=True),
+                    cold_sets(q, k, v), iters, warm)[0]
+                if causal < bound[0]:
+                    raise AssertionError(f"sdpa is_causal at {shape}: "
+                                         f"{causal} ms beats the bound "
+                                         f"{bound[0]} ms")
+                sdpa += f", is_causal {causal * 1e3:.2f} us (cold)"
+                r["library_ms"] = min(r["library_ms"], causal)
+            bf16_bound = flops / BF16_FLOPS_PER_S * 1e3
+            probe = "" if probe_err is None else \
+                f"; mask probe max |err| {probe_err:.3g}"
             log(f"[kernels-s4] flash_attention {tag} {shape}: "
                 f"{flops / 1e9:.1f} GFLOP, bound "
                 f"{flops / peak * 1e3:.3f} ms at {peak / 1e12:.0f} TFLOP/s "
                 f"(the {str(dtype)[6:]} peak), {nbytes / 1e6:.1f} MB "
                 f"({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); kernel "
-                f"{flops / r['ms'] / 1e9:.2f} TFLOP/s; library "
-                f"{'none (no softcap in sdpa)' if lib is None else 'sdpa'} "
-                f"[{card}]")
+                f"{flops / r['ms'] / 1e9:.2f} TFLOP/s, "
+                f"{bf16_bound / r['ms']:.1%} of the bf16 bound "
+                f"({bf16_bound:.3f} ms); library {sdpa}{probe} [{card}]")
             timed[(tag, dtype)] = r
             del q, k, v
             torch.cuda.empty_cache()

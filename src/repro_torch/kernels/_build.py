@@ -30,6 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"similarity": "similarity.cu", "masked_agg": "masked_agg.cu",
            "robust_agg": "robust_agg.cu", "dequant_fold": "dequant_fold.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_bf16": "flash_attention_bf16.cu",
            "mamba_scan": "mamba_scan.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,10 +1,13 @@
-// Causal GQA flash attention (forward) with an optional sliding window and
-// tanh logit softcap: the zoo's prefill attention on the card.
+// Causal GQA flash attention (forward) in fp32 with an optional sliding
+// window and tanh logit softcap: the fp32 variants of the zoo's prefill
+// attention on the card.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:70
-// `flash_attention_kernel` (Pallas).  For q (B, H, Sq, dh) and k, v
-// (B, K, Sk, dh), fp32 or bf16, query head h reads KV head h / (H / K), and
-// query row i (position i) attends to keys j with
+// `flash_attention_kernel` (Pallas) for fp32 inputs; bf16 inputs, the
+// models' serving dtype, go to the tensor-core kernel in
+// flash_attention_bf16.cu.  For q (B, H, Sq, dh) and k, v (B, K, Sk, dh),
+// query head h reads KV head h / (H / K), and query row i (position i)
+// attends to keys j with
 //
 //     j <= i  and, with a window w,  j > i - w
 //
@@ -15,39 +18,40 @@
 //     m' = max(m, rowmax s), a = exp(m - m'), p = exp(s - m'),
 //     l  = l a + sum p,      acc = acc a + p v,
 //
-// the output is acc / max(l, 1e-30) in q's dtype.  A tile that is fully
-// masked for a row (the first tile a sliding window reaches) adds
-// exp(0) = 1 per masked key to l and acc, and the first real score wipes
-// that with a = 0, as on the TPU; masked keys beyond Sk read V as 0, so
-// nothing that is not finite enters.
+// the output is acc / max(l, 1e-30).  A tile that is fully masked for a
+// row (the first tile a sliding window reaches) adds exp(0) = 1 per masked
+// key to l and acc, and the first real score wipes that with a = 0, as on
+// the TPU; masked keys beyond Sk read V as 0, so nothing that is not
+// finite enters.
 //
 // Bound: operations.  Inside the causal window every (query, key) pair
 // costs 4 dh operations (q.k and p v), fp32, 67 TFLOP/s outside the
 // tensor cores.  Bytes (q, k, v read once, o written once) are two orders
 // of magnitude below at the model's shapes: at h2o-danube-1.8b's prefill
 // (B 2, H 32, K 8, S 8192, dh 80, window 4096) 515 GFLOP, 7.7 ms, against
-// 210 MB, 63 us.
+// 420 MB, 125 us.  The tensor cores stay out on purpose: TF32 or bf16
+// operands would round q, k and v, which the fp32 variants' parity (1e-4)
+// refuses.
 //
 // Design: one block of 256 threads per (64-row q tile, head, batch).  The
-// q tile and one 64-key tile of K and V sit in shared memory as fp32 (K
-// and q rows padded to an odd stride, so the 16 key rows a half-warp
-// reads fall in 16 banks); each thread owns 4 rows x 4 keys of the score
-// tile and 4 rows x ceil(dh/16) columns of the accumulator, in registers,
-// so one shared load feeds two multiply-adds.  The 16 threads that share a
-// row are 16 lanes of one warp: the row max and sum are 4 shuffles.  Key
-// tiles run from the first one the window reaches to the causal frontier;
-// tiles outside are never loaded.  Ragged Sq and Sk are masked in the
-// kernel, with no padding copy.  Every tensor is read through its own
-// (batch, head, sequence) strides with a unit stride along dh, so the
-// model's (B, S, H, dh) tensors go in and out without a transpose copy.
-// Above 48 KB of shared memory (dh > 32) the kernel raises its limit with
+// q tile and one 64-key tile of K and V sit in shared memory (K and q rows
+// padded to an odd stride, so the 16 key rows a half-warp reads fall in 16
+// banks); each thread owns 4 rows x 4 keys of the score tile and 4 rows x
+// ceil(dh/16) columns of the accumulator, in registers, so one shared load
+// feeds two multiply-adds.  The 16 threads that share a row are 16 lanes
+// of one warp: the row max and sum are 4 shuffles.  Key tiles run from the
+// first one the window reaches to the causal frontier; tiles outside are
+// never loaded.  Ragged Sq and Sk are masked in the kernel, with no
+// padding copy.  Every tensor is read through its own (batch, head,
+// sequence) strides with a unit stride along dh, so the model's
+// (B, S, H, dh) tensors go in and out without a transpose copy.  Above
+// 48 KB of shared memory (dh > 32) the kernel raises its limit with
 // cudaFuncSetAttribute; dh = 256 takes 214 KB.
 //
-// Left for a later PR: bf16 tensor cores (mma / wgmma) for q k^T and p v,
-// TMA loads of the K/V tiles, and splitting long key ranges across blocks.
+// Left for a later PR: cp.async loads of the next K/V tile under the
+// current one's arithmetic, and splitting long key ranges across blocks.
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,13 +63,7 @@ constexpr int kPS = kBK + 1;           // row stride of the p tile
 constexpr float kNegInf = -1073741824.0f;  // -2^30, the reference's NEG_INF
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 struct Strides {
   int64_t b, h, s;
@@ -265,14 +263,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// q (B, H, Sq, dh), k and v (B, K, Sk, dh), o (B, H, Sq, dh), each with its
-// own (batch, head, sequence) element strides and unit stride along dh;
-// dtype 0 = fp32, 1 = bf16 for all four.  window <= 0: no window;
-// softcap <= 0: none.  Launches on `stream` and returns the CUDA error
-// (0 on success); dh > 256 or H % K != 0 returns cudaErrorInvalidValue.
+// q (B, H, Sq, dh), k and v (B, K, Sk, dh), o (B, H, Sq, dh), all fp32,
+// each with its own (batch, head, sequence) element strides and unit
+// stride along dh.  window <= 0: no window; softcap <= 0: none.  Launches
+// on `stream` and returns the CUDA error (0 on success); dh > 256 or
+// H % K != 0 returns cudaErrorInvalidValue.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int B, int H, int K, int Sq, int Sk,
-                        int dh, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                        int B, int H, int K, int Sq, int Sk, int dh,
+                        int64_t q_sb, int64_t q_sh, int64_t q_ss,
                         int64_t k_sb, int64_t k_sh, int64_t k_ss,
                         int64_t v_sb, int64_t v_sh, int64_t v_ss,
                         int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale,
@@ -282,14 +280,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, B, H, K, Sq, Sk, dh, qs, ks, vs, os,
-                           scale, window, softcap, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, H, K, Sq, Sk, dh, qs, ks,
-                                   vs, os, scale, window, softcap, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<float>(q, k, v, o, B, H, K, Sq, Sk, dh, qs, ks, vs, os,
+                         scale, window, softcap,
+                         static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int code) {

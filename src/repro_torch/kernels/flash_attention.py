@@ -1,16 +1,23 @@
 """Causal GQA flash attention with an optional sliding window and tanh
-softcap: the CUDA kernel ``csrc/flash_attention.cu`` and its plain
-PyTorch version.
+softcap: the CUDA kernels ``csrc/flash_attention_bf16.cu`` (bf16) and
+``csrc/flash_attention.cu`` (fp32) and their plain PyTorch version.
 
-The CUDA kernel replaces the TPU kernel
-``src/repro/kernels/flash_attention.py`` ``flash_attention_kernel``.  It
-is bound by its fp32 operations (4·dh per (query, key) pair inside the
-mask); its design note is at the head of the ``.cu`` file.  The model
-reaches it through ``ops.flash_attention`` for every attention layer of a
-prefill longer than ``cfg.attn_direct_max`` when ``cfg.use_kernels``.
+Both kernels replace the TPU kernel ``src/repro/kernels/flash_attention.py``
+``flash_attention_kernel``.  Both are bound by their operations, 4·dh per
+(query, key) pair inside the mask: the bf16 kernel runs both products on
+the tensor cores (``mma.sync``, fp32 accumulation, 989 TFLOP/s peak), the
+fp32 one as fp32 FMAs (67 TFLOP/s), since TF32 or bf16 operands would
+round fp32 inputs.  Their design notes are at the heads of the ``.cu``
+files.  The model reaches them through ``ops.flash_attention`` for every
+attention layer of a prefill longer than ``cfg.attn_direct_max`` when
+``cfg.use_kernels``.
+
+The bf16 kernel rounds p to bf16 for the p·v product (the plain version
+keeps it in fp32), so it is held to :func:`bf16_error_bound`, and its mask
+to the exact probe of :func:`mask_probe_inputs`.
 
 Layout: q (B, H, Sq, dh), k and v (B, K, Sk, dh), query head h reading KV
-head h // (H / K), positions 0..Sq-1 and 0..Sk-1.  The kernel reads every
+head h // (H / K), positions 0..Sq-1 and 0..Sk-1.  The kernels read every
 tensor through its strides (unit stride along dh), so callers pass
 transposed views of the model's (B, S, H, dh) tensors without a copy.
 """
@@ -18,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,13 +34,17 @@ from . import _build
 NEG_INF = -2.0 ** 30
 PLAIN_Q_CHUNK = 512       # query rows per step of the plain version
 
-# flash_attention_fwd(q, k, v, o, dtype, B, H, K, Sq, Sk, dh, 12 strides,
-#                     scale, window, softcap, stream) in csrc/flash_attention.cu
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
+# flash_attention_fwd (csrc/flash_attention.cu, fp32) and
+# flash_attention_bf16_fwd (csrc/flash_attention_bf16.cu): (q, k, v, o, B,
+# H, K, Sq, Sk, dh, 12 strides, scale, window, softcap, stream)
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
              + (ctypes.c_int64,) * 12
              + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p))
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (library, entry point)
+_ENTRY = {torch.float32: ("flash_attention", "flash_attention_fwd"),
+          torch.bfloat16: ("flash_attention_bf16",
+                           "flash_attention_bf16_fwd")}
 MAX_HEAD_DIM = 256
 
 
@@ -68,6 +79,61 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def bf16_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None,
+                     ref: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """How far the bf16 kernel may lie from the plain version, elementwise:
+    ``1e-5 + 2^-7·|ref| + 2^-7·scale`` (fp32, (B, H, Sq, dh)), where
+    ``ref`` is the plain output (computed if None) and ``scale`` the plain
+    output for |v|, Σⱼ pⱼ|vⱼ| / l.  The kernel rounds each p to bf16 for
+    the p·v product, at most 2^-8 of p, which moves the output by at most
+    2^-8·scale; the bound doubles that for the second-order terms, and
+    2^-7·|ref| covers the two outputs' own roundings to bf16."""
+    if ref is None:
+        ref = flash_attention_plain(q, k, v, window, softcap)
+    scale = flash_attention_plain(q, k, v.abs(), window, softcap).float()
+    return 1e-5 + 2.0 ** -7 * (ref.float().abs() + scale)
+
+
+def mask_probe_inputs(B: int, H: int, K: int, S: int, dh: int,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """q, k, v that make attention count its admitted keys exactly: q = 0,
+    so every admitted key scores 0 (and tanh(0) = 0 under a softcap), p = 1
+    exactly in bf16 and l is the number of admitted keys; k and v have a 1
+    in column j mod dh of row j and zeros elsewhere.  Output column c of a
+    row is then (its admitted keys j with j = c mod dh) / l: one key wrongly
+    admitted or dropped at a window edge or a diagonal moves a column by
+    about 1/(l/dh) of itself, which a bar of 2^-7 sees up to l ~ 128 dh."""
+    q = torch.zeros((B, H, S, dh), dtype=dtype, device=device)
+    j = torch.arange(S, device=device)
+    v = torch.zeros((B, K, S, dh), dtype=dtype, device=device)
+    v[:, :, j, j % dh] = 1.0
+    return q, v.clone(), v
+
+
+def check_bf16_operands(*tensors: torch.Tensor) -> None:
+    """The bf16 kernel's layout, checked before any launch: dh a multiple
+    of 8, a 16-byte-aligned base and (batch, head, sequence) strides that
+    are multiples of 8 elements, so every row starts on 16 bytes, as
+    ``cp.async`` needs.  Raises ValueError naming the tensor; there is no
+    fallback."""
+    for name, t in zip("qkvo", tensors):
+        dh = t.shape[-1]
+        if dh % 8:
+            raise ValueError(f"flash_attention_cuda: bf16 needs a head dim "
+                             f"that is a multiple of 8, got {dh}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_cuda: bf16 {name} must start "
+                             f"on 16 bytes, got address {t.data_ptr():#x}")
+        if any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"flash_attention_cuda: bf16 {name} needs "
+                             f"strides that are multiples of 8, got "
+                             f"{t.stride()}")
+
+
 def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
     if not t.is_cuda:
         raise ValueError(f"flash_attention_cuda: {name} must be a CUDA "
@@ -98,7 +164,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
     B, H, Sq, dh = q.shape
     K, Sk = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _ENTRY:
         raise TypeError(f"flash_attention_cuda: fp32 or bf16 only, got "
                         f"{q.dtype}")
     if K < 1 or H % K:
@@ -120,16 +186,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if Sk == 0:
         raise ValueError("flash_attention_cuda: no keys (Sk = 0)")
-    fn = _build.entry_point("flash_attention", "flash_attention_fwd",
-                            _ARGTYPES)
+    if q.dtype == torch.bfloat16:
+        check_bf16_operands(q, k, v, out)
+    lib, symbol = _ENTRY[q.dtype]
+    fn = _build.entry_point(lib, symbol, _ARGTYPES)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  _DTYPE_CODE[q.dtype], B, H, K, Sq, Sk, dh, *strides,
-                  1.0 / math.sqrt(dh), window or 0, float(softcap or 0.0),
-                  stream)
-    _build.check("flash_attention", code)
+                  B, H, K, Sq, Sk, dh, *strides, 1.0 / math.sqrt(dh),
+                  window or 0, float(softcap or 0.0), stream)
+    _build.check(lib, code)
     flash_attention_cuda.launches += 1
     return out
 

@@ -9,6 +9,10 @@
   and its final state against a float64 loop.
 * The layout adapters ``ops.flash_attention`` (B, S, H, dh) and
   ``ops.mamba_scan`` (the model's coefficients) against the reference's.
+* What the bf16 tensor-core kernel is held to on the card:
+  ``bf16_error_bound`` admits an emulation of its rounding of p, the
+  ``mask_probe_inputs`` probe rejects a window one key off, and
+  ``check_bf16_operands`` refuses a layout ``cp.async`` cannot take.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds them
 against these plain versions there).  The reference's Mamba kernel calls
@@ -30,8 +34,11 @@ from repro.models import init as jax_init
 from repro_torch import configs
 from repro_torch.convert import tree_from_jax
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (NEG_INF, bf16_error_bound,
+                                                 check_bf16_operands,
+                                                 flash_attention_cuda,
+                                                 flash_attention_plain,
+                                                 mask_probe_inputs)
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_plain
 
 
@@ -164,6 +171,121 @@ def test_flash_cuda_wrapper_refuses_cpu_tensors():
         flash_attention_cuda(q, k, v)
     with pytest.raises(ValueError, match="divide"):
         flash_attention_cuda(q, torch.zeros(1, 3, 8, 16), v)
+
+
+def _bf16_kernel_rounding(q, k, v, window, softcap, bk=64):
+    """The bf16 kernel's arithmetic in PyTorch: an online softmax over
+    tiles of ``bk`` keys in fp32, every tile from the first key, masked
+    scores at NEG_INF (so a fully masked first tile counts 1 per key until
+    the first real score wipes it), p rounded to bf16 against the running
+    tile max for the p·v product, l summing the fp32 p, the output rounded
+    to bf16."""
+    B, H, Sq, dh = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    g = H // K
+    qf = q.float().reshape(B, K, g, Sq, dh)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) / dh ** 0.5
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qp = torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    mask = kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    s = torch.where(mask, s, NEG_INF)
+    m = torch.full((B, K, g, Sq, 1), NEG_INF)
+    l = torch.zeros((B, K, g, Sq, 1))
+    acc = torch.zeros((B, K, g, Sq, dh))
+    for k0 in range(0, Sk, bk):
+        st = s[..., k0:k0 + bk]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pb = p.to(torch.bfloat16).float()
+        acc = acc * alpha + torch.einsum("bkgqs,bksd->bkgqd", pb,
+                                         vf[:, :, k0:k0 + bk])
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.reshape(B, H, Sq, dh).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (48, None),
+                                            (None, 30.0), (40, 20.0)])
+@pytest.mark.parametrize("B,H,K,S,dh", [(1, 4, 2, 200, 80),
+                                        (2, 2, 1, 150, 64)])
+def test_bf16_error_bound_admits_kernel_rounding(B, H, K, S, dh, window,
+                                                 softcap):
+    """``bf16_error_bound`` admits the bf16 kernel's rounding of p (an
+    emulation of its arithmetic), and the emulation is no copy of the
+    plain version: p's rounding moves the output."""
+    q, k, v = _qkv(B, H, K, S, dh, S + dh + 1, 6.0 if softcap else 1.0)
+    tq, tk, tv = (x.to(torch.bfloat16) for x in _t(q, k, v))
+    ref = flash_attention_plain(tq, tk, tv, window, softcap)
+    emu = _bf16_kernel_rounding(tq, tk, tv, window, softcap)
+    bound = bf16_error_bound(tq, tk, tv, window, softcap)
+    assert bound.shape == ref.shape and bound.dtype == torch.float32
+    err = (emu.float() - ref.float()).abs()
+    assert bool((err <= bound).all()), (err / bound).max().item()
+    assert err.max().item() > 0
+    # ref computed inside or given: the same bound
+    assert torch.equal(bound, bf16_error_bound(tq, tk, tv, window, softcap,
+                                               ref=ref))
+
+
+def _probe_bar(out, ref):
+    """chip_smoke's bar for the mask probe: atol 1e-5, rtol 2^-7."""
+    return bool(((out.float() - ref.float()).abs()
+                 <= 1e-5 + 2.0 ** -7 * ref.float().abs()).all())
+
+
+@pytest.mark.parametrize("S,dh,window", [(200, 16, 50), (300, 32, 129),
+                                         (2000, 72, 700)])
+def test_mask_probe_rejects_a_window_off_by_one(S, dh, window):
+    """q = 0 makes every admitted key count exactly: the probe passes the
+    plain version against itself and rejects one whose window admits one
+    key more or one less."""
+    q, k, v = mask_probe_inputs(1, 2, 1, S, dh)
+    assert q.dtype == torch.bfloat16 and not bool(q.any())
+    assert torch.equal(v.float().sum(-1), torch.ones((1, 1, S)))
+    ref = flash_attention_plain(q, k, v, window)
+    # a row's columns split its admitted keys: they sum to 1
+    np.testing.assert_allclose(ref.float().sum(-1).numpy(), 1.0, rtol=2e-2)
+    assert _probe_bar(flash_attention_plain(q, k, v, window), ref)
+    for off in (window - 1, window + 1):
+        assert not _probe_bar(flash_attention_plain(q, k, v, off), ref)
+
+
+def test_mask_probe_holds_the_softcap_and_causal_shapes():
+    """Under a softcap tanh(0) = 0, so the probe's output is the capless
+    one; without a window, a diagonal that admits no key of its own row
+    (the row before's output) fails the bar."""
+    q, k, v = mask_probe_inputs(1, 4, 2, 160, 32)
+    ref = flash_attention_plain(q, k, v)
+    assert torch.equal(flash_attention_plain(q, k, v, None, 30.0), ref)
+    shifted = torch.cat([ref[:, :, :1], ref[:, :, :-1]], dim=2)
+    assert not _probe_bar(shifted, ref)
+
+
+def test_bf16_layout_checks_raise_before_launch():
+    """The bf16 kernel's layout is checked on the host, before any launch:
+    dh a multiple of 8, a 16-byte-aligned base, strides in multiples of 8
+    elements.  A well-laid-out set passes."""
+    good = torch.zeros((1, 2, 10, 16), dtype=torch.bfloat16)
+    check_bf16_operands(good, good, good, good)
+    # the model's (B, S, H, dh) tensors, seen as (B, H, S, dh)
+    check_bf16_operands(torch.zeros((2, 10, 4, 80),
+                                    dtype=torch.bfloat16).transpose(1, 2))
+    with pytest.raises(ValueError, match="multiple of 8, got 12"):
+        check_bf16_operands(torch.zeros((1, 2, 10, 12),
+                                        dtype=torch.bfloat16))
+    flat = torch.zeros(2 * 10 * 16 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="k must start on 16 bytes"):
+        check_bf16_operands(good, flat[1:1 + 320].view(1, 2, 10, 16))
+    with pytest.raises(ValueError, match="v needs strides"):
+        check_bf16_operands(good, good, torch.zeros(
+            (1, 2, 10, 20), dtype=torch.bfloat16)[..., :16])
 
 
 # ----------------------------------------------------------------------
