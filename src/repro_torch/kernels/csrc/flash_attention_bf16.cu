@@ -15,20 +15,25 @@
 // NEG_INF = -2^30 of the reference, and per key tile
 //
 //     m' = max(m, rowmax s), a = 2^(m - m'), p = 2^(s - m'),
-//     l  = l a + sum p,      acc = acc a + bf16(p) v,
+//     l  = l a + sum p,      acc = acc a + p v,
 //
 // with s and m in log2 units (log2 e folded into the scale, which enters
 // the exponent's FMA), and the output is acc / max(l, 1e-30) in bf16.  l
-// sums the fp32 p; only the operand of the p v product is rounded to
-// bf16, as the TPU's MXU rounds it at XLA's default precision.  A tile
-// that is fully masked for a row (the first tile a sliding window
+// sums the fp32 p.  The tensor cores take bf16 operands, so p v is two
+// products into the same fp32 accumulators: p_hi = bf16(p) and
+// p_lo = bf16(p - p_hi) (the difference is exact in fp32), acc += p_hi v +
+// p_lo v.  p then enters with about 16 significant bits (a relative error
+// near 2^-17) where one bf16 operand would keep 8 (2^-9); v is bf16 input
+// and exact.  The plain version and the reference take p v in fp32.  A
+// tile that is fully masked for a row (the first tile a sliding window
 // reaches) adds 2^0 = 1 per masked key to l and acc, and the first real
-// score wipes that with a = 0, as on the TPU.
+// score wipes that with a = 0, as in the reference.
 //
 // Bound: operations.  Inside the causal window every (query, key) pair
 // costs 4 dh operations (q.k and p v) on the bf16 tensor cores (989
 // TFLOP/s dense); q, k, v and o cross HBM once in 1/8 of that time at the
-// model's shapes.  At h2o-danube-1.8b's prefill (B 2, H 32, K 8, S 8192,
+// model's shapes.  The split p v issues 6 dh a pair; the bound counts the
+// function's 4 dh.  At h2o-danube-1.8b's prefill (B 2, H 32, K 8, S 8192,
 // dh 80, window 4096): 515 GFLOP, 0.521 ms, against 210 MB, 63 us.  Each
 // pair also takes one exp2 on the SFU (16 a clock an SM against the tensor
 // cores' 4096 flops), which at dh = 80 costs 80 % of the product's time
@@ -42,11 +47,15 @@
 // tile), O += P V takes P straight from S's accumulators (an m16n8 fp32
 // fragment, packed two at a time into bf16, is an m16k16 A-fragment, so P
 // never touches shared memory) and V's B-fragments through ldmatrix.trans.
-// Up to dh = 80 a warp owns two 16-row tiles (128-row q tiles), so every
-// K and V fragment feeds two products; above, one (64 rows), since two
-// tiles' fp32 accumulators no longer fit in 255 registers without a
-// spill.  Row max and row sum live in the 4 lanes of a quad (two
-// shuffles).  K and V tiles of 64 keys stream through a 2-stage ring in
+// The fp32 p stays in S's registers, and each k16 slice's p_hi and p_lo
+// fragments are packed just before their two products, so the split holds
+// no second P array; still, a 64-key tile's fp32 p beside dh = 256's 128
+// accumulators spills, so that bucket takes 16-key tiles.  Up to dh = 80
+// a warp owns two 16-row tiles (128-row q tiles), so every K and V
+// fragment feeds two products; above, one (64 rows), since two tiles'
+// fp32 accumulators no longer fit in 255 registers without a spill.  Row
+// max and row sum live in the 4 lanes of a quad (two shuffles).  K and V
+// tiles of 64 keys (16 at dh = 256) stream through a 2-stage ring in
 // shared memory by cp.async.cg (16 bytes a thread), one barrier a tile:
 // tile t+1 loads while tile t is in the tensor cores.  Rows are dh padded
 // to the bucket DP (32, 64, 80, 128, 256) plus 16 bytes, so the 8 rows an
@@ -73,7 +82,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBK = 64;                        // keys a tile
 constexpr float kNegInf = -1073741824.0f;      // -2^30, the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -83,6 +91,12 @@ __host__ __device__ constexpr int row_tiles(int dp) { return dp <= 80 ? 2 : 1; }
 // query rows a block
 __host__ __device__ constexpr int block_rows(int dp) {
   return 16 * row_tiles(dp) * kWarps;
+}
+// keys a tile: 64, or 16 at dh = 256, whose 128 accumulators a thread
+// leave no room for a larger tile's fp32 p beside the split's halves (32
+// keys still spilled under a softcap)
+__host__ __device__ constexpr int key_tile(int dp) {
+  return dp > 128 ? 16 : 64;
 }
 
 struct Strides {
@@ -154,10 +168,15 @@ __device__ __forceinline__ float exp2_sfu(float x) {
   return y;
 }
 
-// two fp32 -> one register of two bf16, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two fp32 (a in the low half) -> two registers of two bf16 each: hi =
+// bf16(x) and lo = bf16(x - hi), so hi + lo carries about 16 bits of x
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 r =
+      __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // `rows` rows of dh bf16 from `src` (row stride `stride`), starting at row
@@ -205,14 +224,14 @@ __device__ __forceinline__ void cap_mask(float (&s)[NT][4], const Params& p,
 
 // the online-softmax step of one 16-row tile on one key tile: the softcap
 // and mask, the new row max over the quad, l and o rescaled, p added to l
-// in fp32 and packed into bf16 A-fragments for P V.  Rows row0 (e = 0, 1)
+// in fp32 and left in s for P V.  Rows row0 (e = 0, 1)
 // and row0 + 8 (e = 2, 3).  Without a softcap s and m stay raw and the
 // scale (times log2 e) enters the exponent's FMA, which is exact for the
 // NEG_INF of a fully masked row (a power of two): 2^0 = 1 as the
 // reference's exp(0).
 template <bool kCap, int NT, int ND>
 __device__ __forceinline__ void softmax_step(
-    float (&s)[NT][4], uint32_t (&pa)[NT / 2][4], float (&m)[2],
+    float (&s)[NT][4], float (&m)[2],
     float (&l)[2], float (&o)[ND][4], bool edge, const Params& p, int row0,
     int k0, int t) {
   if (edge)
@@ -244,8 +263,10 @@ __device__ __forceinline__ void softmax_step(
     const float p3 = exp2_sfu(fmaf(s[j][3], c, mc1));
     l[0] += p0 + p1;
     l[1] += p2 + p3;
-    pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
-    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    s[j][0] = p0;
+    s[j][1] = p1;
+    s[j][2] = p2;
+    s[j][3] = p3;
   }
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
@@ -263,6 +284,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int CH = DP / 8;          // 16-byte chunks of a padded row
   constexpr int KD = DP / 16;         // k steps of q k^T over dh
   constexpr int ND = DP / 8;          // n tiles of the output
+  constexpr int kBK = key_tile(DP);   // keys a tile
   constexpr int NT = kBK / 8;         // n tiles of the score tile
   constexpr int R = row_tiles(DP);
   constexpr int kBQ = block_rows(DP);
@@ -387,23 +409,40 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    uint32_t pa[R][NT / 2][4];
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      softmax_step<kCap, NT, ND>(s[r], pa[r], m[r], l[r], o[r], edge, p,
+      softmax_step<kCap, NT, ND>(s[r], m[r], l[r], o[r], edge, p,
                                  row0 + 16 * r, k0, t);
 
-    // O += P V, each V fragment feeding every row tile
+    // O += P_hi V + P_lo V, one k16 slice of P at a time, each V fragment
+    // feeding both halves of every row tile
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t ph[R][4], pl[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        split_bf16(s[r][2 * kk][0], s[r][2 * kk][1], ph[r][0], pl[r][0]);
+        split_bf16(s[r][2 * kk][2], s[r][2 * kk][3], ph[r][1], pl[r][1]);
+        split_bf16(s[r][2 * kk + 1][0], s[r][2 * kk + 1][1], ph[r][2],
+                   pl[r][2]);
+        split_bf16(s[r][2 * kk + 1][2], s[r][2 * kk + 1][3], ph[r][3],
+                   pl[r][3]);
+      }
 #pragma unroll
       for (int dp = 0; dp < ND / 2; ++dp) {
         uint32_t vf[4];
         ldmatrix_x4_trans(vf, smem_u32(Vt + kk * 16 * LD + dp * 16 + v_off));
+        // the hi products of every tile first: no two neighbouring mmas
+        // share an accumulator
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          mma_bf16(o[r][2 * dp], pa[r][kk], vf[0], vf[1]);
-          mma_bf16(o[r][2 * dp + 1], pa[r][kk], vf[2], vf[3]);
+          mma_bf16(o[r][2 * dp], ph[r], vf[0], vf[1]);
+          mma_bf16(o[r][2 * dp + 1], ph[r], vf[2], vf[3]);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          mma_bf16(o[r][2 * dp], pl[r], vf[0], vf[1]);
+          mma_bf16(o[r][2 * dp + 1], pl[r], vf[2], vf[3]);
         }
       }
     }
@@ -435,7 +474,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int DP, bool kCap>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (block_rows(DP) + 4 * kBK) * (DP + 8);
+  const size_t smem =
+      sizeof(bf16) * (block_rows(DP) + 4 * key_tile(DP)) * (DP + 8);
   auto kern = flash_bf16_kernel<DP, kCap>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

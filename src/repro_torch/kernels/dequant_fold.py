@@ -70,9 +70,8 @@ def dequant_fold_update_plain(q: torch.Tensor, scale: torch.Tensor,
 
 def _check(name: str, t: torch.Tensor, shape, dtype,
            device: torch.device) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"dequant_fold_update_cuda: {name} must be a CUDA "
-                         f"tensor, got device {t.device}")
+    """Shape and device match, then dtype; each refusal names the
+    tensor."""
     if tuple(t.shape) != tuple(shape) or t.device != device:
         raise ValueError(f"dequant_fold_update_cuda: {name} must be "
                          f"{tuple(shape)} on {device}, got "
@@ -80,9 +79,48 @@ def _check(name: str, t: torch.Tensor, shape, dtype,
     if t.dtype != dtype:
         raise TypeError(f"dequant_fold_update_cuda: {name} must be {dtype}, "
                         f"got {t.dtype}")
+
+
+def _check_placement(name: str, t: torch.Tensor) -> None:
+    """A contiguous CUDA tensor; the refusal names the tensor."""
+    if not t.is_cuda:
+        raise ValueError(f"dequant_fold_update_cuda: {name} must be a CUDA "
+                         f"tensor, got device {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"dequant_fold_update_cuda: {name} must be "
                          f"contiguous")
+
+
+def _launch(symbol: str, q: torch.Tensor, scale: torch.Tensor,
+            w: torch.Tensor, acc: torch.Tensor, qblock: int) -> torch.Tensor:
+    """Check the operands, allocate the output and launch entry point
+    ``symbol`` of ``csrc/dequant_fold.cu`` on the current stream."""
+    if q.dim() != 2:
+        raise ValueError(f"dequant_fold_update_cuda: q must be (n, D), got "
+                         f"shape {tuple(q.shape)}")
+    if qblock < 1:
+        raise ValueError(f"dequant_fold_update_cuda: qblock must be >= 1, "
+                         f"got {qblock}")
+    n, d = q.shape
+    nb = n_blocks(d, qblock)
+    operands = {"q": (q, (n, d), torch.int8),
+                "scale": (scale, (n, nb), torch.float32),
+                "w": (w, (n,), torch.float32),
+                "acc": (acc, (d,), torch.float32)}
+    for name, (t, shape, dtype) in operands.items():
+        _check(name, t, shape, dtype, q.device)
+    for name, (t, _, _) in operands.items():
+        _check_placement(name, t)
+    out = torch.empty((d,), dtype=torch.float32, device=q.device)
+    if d == 0:
+        return out
+    fn = _build.entry_point("dequant_fold", symbol, _ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fn(q.data_ptr(), scale.data_ptr(), w.data_ptr(),
+                  acc.data_ptr(), out.data_ptr(), n, d, nb, qblock, stream)
+    _build.check("dequant_fold", code)
+    return out
 
 
 def dequant_fold_update_cuda(q: torch.Tensor, scale: torch.Tensor,
@@ -93,29 +131,20 @@ def dequant_fold_update_cuda(q: torch.Tensor, scale: torch.Tensor,
     device -> a new (D,) fp32 tensor ``acc + Σᵢ wᵢ·(qᵢ ⊙ scaleᵢ)``.  The
     reference donates acc; the port writes a new tensor, since the
     kernel's output may not alias its inputs."""
-    if q.dim() != 2:
-        raise ValueError(f"dequant_fold_update_cuda: q must be (n, D), got "
-                         f"shape {tuple(q.shape)}")
-    if qblock < 1:
-        raise ValueError(f"dequant_fold_update_cuda: qblock must be >= 1, "
-                         f"got {qblock}")
-    n, d = q.shape
-    nb = n_blocks(d, qblock)
-    _check("q", q, (n, d), torch.int8, q.device)
-    _check("scale", scale, (n, nb), torch.float32, q.device)
-    _check("w", w, (n,), torch.float32, q.device)
-    _check("acc", acc, (d,), torch.float32, q.device)
-    out = torch.empty((d,), dtype=torch.float32, device=q.device)
-    if d == 0:
-        return out
-    fn = _build.entry_point("dequant_fold", "dequant_fold_f32", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), scale.data_ptr(), w.data_ptr(),
-                  acc.data_ptr(), out.data_ptr(), n, d, nb, qblock, stream)
-    _build.check("dequant_fold", code)
-    dequant_fold_update_cuda.launches += 1
+    out = _launch("dequant_fold_f32", q, scale, w, acc, qblock)
+    if q.shape[1]:
+        dequant_fold_update_cuda.launches += 1
     return out
 
 
 dequant_fold_update_cuda.launches = 0
+
+
+def dequant_fold_update_percolumn_cuda(q: torch.Tensor, scale: torch.Tensor,
+                                       w: torch.Tensor, acc: torch.Tensor,
+                                       qblock: int) -> torch.Tensor:
+    """The kernel as it was before its redesign for the H100 (one thread a
+    column, one byte load a client), same arguments and result.  No path
+    calls it: the on-card check holds :func:`dequant_fold_update_cuda` to
+    it bit for bit with real weights, and times the two side by side."""
+    return _launch("dequant_fold_percolumn_f32", q, scale, w, acc, qblock)

@@ -14,7 +14,7 @@ from .. import models
 
 def make_serve_step(cfg):
     """serve_step(params, token (B,1), cache, cache_index)
-       -> (next_token (B,1) int64, new_cache).
+       -> (next_token (B,1) int32, new_cache).
 
     Greedy: the next token is the argmax of the step's logits.  The cache
     is updated IN PLACE (the KV entries at ``cache_index``, the SSM and
@@ -26,7 +26,7 @@ def make_serve_step(cfg):
     def serve_fn(params, token, cache, cache_index):
         lg, new_cache = models.decode_step(params, cfg, token, cache,
                                            cache_index)
-        return torch.argmax(lg, dim=-1), new_cache
+        return torch.argmax(lg, dim=-1).to(torch.int32), new_cache
 
     return serve_fn
 

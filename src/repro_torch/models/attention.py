@@ -4,7 +4,7 @@ single-token decode against a KV cache (a ring buffer for sliding-window
 layers).  The counterpart of ``repro/models/attention.py:24-186``.
 
 Cross attention (``xattn``/``attn_x`` mixers) is not ported yet: it waits
-with the VLM and encoder-decoder configs (ROADMAP.md, queue 1, item 16).
+with the VLM and encoder-decoder configs (ROADMAP.md, queue 1, item 3: S7b).
 """
 from __future__ import annotations
 

@@ -11,7 +11,8 @@ Params layout (the reference's pytree, with torch tensors as leaves)::
 The reference scans the groups with ``jax.lax.scan`` (and checkpoints the
 body when ``cfg.remat``); the port runs them in a Python loop, indexing
 the stacked leaves.  The ``moe`` FFN, the ``xattn``/``attn_x`` mixers and
-the encoder are not ported yet and raise (ROADMAP.md, queue 1, item 16).
+the encoder are not ported yet and raise (ROADMAP.md, queue 1, item 3:
+S7b).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from .layers import (apply_mlp, apply_norm, dense_init, make_mlp_params,
                      make_norm_params)
 from .mamba import init_mamba_cache, make_mamba_params, mamba_mixer
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1, item 16: MoE, "
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1, item 3, S7b: MoE, "
                "cross attention and the encoder are the next model slice)")
 
 
