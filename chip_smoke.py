@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero):
                TF32 off for matmuls and cuDNN convolutions, so every
                comparison on the card is in full fp32
   2. build   - nvcc builds the CUDA kernels from src/repro_torch/kernels/csrc;
-               a kernel that spills registers fails the run
+               ptxas's registers and spills per entry function; a kernel
+               that spills registers fails the run
   3. kernels - slice 1: the similarity and masked-mean kernels against
                their plain PyTorch versions at (23, 7850), (23, 199210),
                (1024, 7850), (23, 16411) and the small CNN's and VGG-11's
@@ -28,7 +29,10 @@ Phases (any failure raises and the script exits non-zero):
                the weighted fold at those shapes, and the median/trimmed-
                mean kernel at (23, 7850), (23, 199210), (24, 7850),
                (64, 7850), (23, 28146762) with f in {0, 5} and exact ties,
-               timed likewise
+               its median bitwise the pre-redesign kernel's too; both
+               timed likewise, the median kernel at (23, 199210) and
+               VGG-11's width beside the pre-redesign kernel, against a
+               byte bound
   4. train   - slice 1: the paper's configuration (softmax regression, 23
                clients, f = 5, 60 rounds): diversefl/oracle under sign_flip
                and diversefl/mean under gaussian, with the reference's
@@ -63,7 +67,11 @@ Phases (any failure raises and the script exits non-zero):
                dh 128, S 4096), each in bf16 (the tensor-core kernel, held
                to one bf16 step of the plain version on random inputs and
                on the exact mask probe) and
-               fp32 (the SIMT kernel, 1e-4); sdpa with the mask and, where
+               fp32 (the SIMT kernel, 1e-4 and bitwise repeatable; the
+               pre-redesign SIMT kernel held to 1e-4 and timed beside
+               it); the fp32 kernel's layout cases FP32_CASES (both copy
+               widths, every head-dim bucket, key splits and none, Sq !=
+               Sk, a base off 16 bytes) at 1e-4; sdpa with the mask and, where
                there is no window, is_causal beside them; the scan at
                falcon-mamba-7b's prefill (2, 4096, 8192, 16), kernel_bench's
                (1, 512, 256, 16) and a ragged (1, 1000, 1000, 16); the int8
@@ -73,10 +81,12 @@ Phases (any failure raises and the script exits non-zero):
                the kernels: a timed prefill with exact launch counts (24
                flash calls, 64 scans), the plain path beside it, greedy
                serving of 4 requests (16-token prompt, 32 generated); then
-               their fp32 variants: kernel path vs plain path, decode vs
-               forward at T = 64 and, for Mamba, the prefill's state vs the
-               decode's.  [card-vs-cpu-s4]: the SMOKE configs in fp32 on the
-               card and the CPU, prefill logits and greedy tokens
+               their fp32 variants: the prefill timed through the kernels
+               (exact launch counts) and the plain path, kernel path vs
+               plain path, decode vs forward at T = 64 and, for Mamba, the
+               prefill's state vs the decode's.  [card-vs-cpu-s4]: the
+               SMOKE configs in fp32 on the card and the CPU, prefill
+               logits and greedy tokens
   8. result  - a ``kernels`` JSON line, then ``{"ok": true, ...}`` last
 """
 import dataclasses
@@ -111,7 +121,8 @@ from repro_torch.kernels.dequant_fold import (  # noqa: E402
     dequant_fold_update_cuda, dequant_fold_update_percolumn_cuda,
     dequant_fold_update_plain, dequant_int8)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_plain, mask_probe_inputs)
+    FP32_BUCKETS, flash_attention_cuda, flash_attention_plain,
+    flash_attention_simt_v1_cuda, fp32_plan, mask_probe_inputs)
 from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,  # noqa: E402
                                             mamba_scan_plain)
 from repro_torch.kernels.masked_agg import (masked_agg_cuda,  # noqa: E402
@@ -119,7 +130,8 @@ from repro_torch.kernels.masked_agg import (masked_agg_cuda,  # noqa: E402
                                             masked_agg_update_cuda,
                                             masked_agg_update_plain)
 from repro_torch.kernels.robust_agg import (robust_agg_cuda,  # noqa: E402
-                                            robust_agg_plain)
+                                            robust_agg_plain,
+                                            robust_agg_v1_cuda)
 from repro_torch.kernels.similarity import (similarity_cuda,  # noqa: E402
                                             similarity_plain)
 from repro_torch.launch.serve import (make_prefill,  # noqa: E402
@@ -280,6 +292,21 @@ def time_kernel(card, name, shape, fns, inputs, bound, err, iters=200,
                 max_abs_err=err, warm_ms=w_ms)
 
 
+def time_v1(card, name, shape, fn, inputs, r, iters=200, warmup=20):
+    """The pre-redesign kernel ``fn``'s cold and warm times on ``inputs``,
+    in the same run as the redesign's ``r`` (from time_kernel), logged
+    beside it; -> the cold ms."""
+    cold = cold_sets(*inputs)
+    was_ms = cuda_ms(fn, cold, iters, warmup)[0]
+    del cold
+    was_warm = cuda_ms(fn, [inputs], iters, warmup)[0]
+    log(f"[kernels] {name} {shape}: the pre-redesign kernel in this run "
+        f"{was_ms * 1e3:.2f} us cold / {was_warm * 1e3:.2f} us warm, the "
+        f"redesign {r['ms'] * 1e3:.2f} / {r['warm_ms'] * 1e3:.2f} us "
+        f"({was_ms / r['ms']:.2f}x cold) [{card}]")
+    return was_ms
+
+
 def bound_ms(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
     """The least time for the work: ``nbytes`` over the HBM rate or
     ``flops`` over the card's peak for the inputs' type, the larger."""
@@ -314,13 +341,17 @@ def phase_build():
     spills = []
     for name, b in built.items():
         log(f"[build] {name}: {b.path.name} ({b.seconds:.2f} s)")
+        entry = ""
         for line in b.log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
             if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+                log(f"[build]   {entry[:48]}: {line.strip()}")
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
             if m and (int(m.group(1)) or int(m.group(2))):
-                spills.append(f"{name}: {line.strip()}")
+                spills.append(f"{name} {entry}: {line.strip()}")
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
 
@@ -620,11 +651,6 @@ def phase_card_vs_cpu():
 # slice 2: the weighted fold and the median/trimmed-mean kernel
 # ----------------------------------------------------------------------
 
-def oddeven_pairs(n):
-    """Compare-swaps of an odd-even transposition network of n passes."""
-    return sum(len(range(it % 2, n - 1, 2)) for it in range(n))
-
-
 def check_update(u, w, acc):
     """The weighted fold against its plain left fold: real weights round
     differently under the kernel's fmaf, so within
@@ -651,11 +677,13 @@ def check_update(u, w, acc):
 
 def check_robust(u, f):
     """The median/trimmed kernel against its plain version: the median
-    bitwise (and equal to the registry's median rule), the trimmed mean
-    within 1e-5 * max|u| + 1e-7 per column (the same admitted values,
-    summed in another order); bitwise repeatable."""
+    bitwise (and equal to the registry's median rule and to the
+    pre-redesign kernel's), the trimmed mean within 1e-5 * max|u| + 1e-7
+    per column (the same admitted values, summed in another order);
+    bitwise repeatable."""
     med, trim = robust_agg_cuda(u, f)
     med2, trim2 = robust_agg_cuda(u, f)
+    v1_med, _ = robust_agg_v1_cuda(u, f)
     torch.cuda.synchronize()
     p_med, p_trim = robust_agg_plain(u, f)
     rule, _ = aggregate("median", u, AggregationContext(f=f))
@@ -663,6 +691,10 @@ def check_robust(u, f):
         raise AssertionError(f"robust_aggregate median differs at "
                              f"{tuple(u.shape)} f={f}: max |err| "
                              f"{(med - p_med).abs().max().item()}")
+    if not torch.equal(med, v1_med):
+        raise AssertionError(f"robust_aggregate median differs from the "
+                             f"pre-redesign kernel's at {tuple(u.shape)} "
+                             f"f={f}")
     err = (trim - p_trim).abs()
     if not bool((err <= 1e-5 * u.abs().amax(0) + 1e-7).all()):
         raise AssertionError(f"robust_aggregate trimmed mean disagrees at "
@@ -684,6 +716,46 @@ def with_ties(u, sigma=10.0):
     u[3] = u[0]
     u[:, :64] = 0.5
     return u
+
+
+def check_robust_shapes(gen):
+    """check_robust at every ROBUST_SHAPES entry, f in (0, 5), on random
+    columns and with exact ties -> {("robust_aggregate", n, d): max err}."""
+    rows = {}
+    for n, d in ROBUST_SHAPES:
+        errs = []
+        for ties in (False, True):
+            u = torch.randn((n, d), generator=gen, device="cuda")
+            if ties:
+                u = with_ties(u)
+            for f in (0, 5):
+                errs.append(check_robust(u, f))
+        log(f"[kernels] robust_aggregate ({n}, {d}): median equal to the "
+            f"plain version, the median rule and the pre-redesign kernel, "
+            f"trimmed mean max |err| {max(errs):.3g}, f in (0, 5), with and "
+            f"without ties")
+        rows[("robust_aggregate", n, d)] = max(errs)
+        del u
+    return rows
+
+
+def time_robust(card, u, iters=200, warmup=20):
+    """time_kernel for the median/trimmed kernel at f = F_BUDGET, the
+    pre-redesign kernel beside it.  The bound counts bytes only (U read
+    once, the two (D,) results written once): the operations depend on
+    the sorting network, so counting a network's compare-swaps would let
+    a smaller network read as beating its bound."""
+    n, d = u.shape
+    r = time_kernel(card, "robust_aggregate", (n, d),
+                    (lambda u: robust_agg_cuda(u, F_BUDGET),
+                     lambda u: robust_agg_plain(u, F_BUDGET),
+                     lambda u: torch.median(u, 0)), (u,),
+                    bound_ms(n * d * 4 + 2 * d * 4, 0),
+                    check_robust(u, F_BUDGET), iters, warmup)
+    time_v1(card, "robust_aggregate", (n, d),
+            lambda u: robust_agg_v1_cuda(u, F_BUDGET), (u,), r, iters,
+            warmup)
+    return r
 
 
 def phase_kernels_s2(card):
@@ -709,19 +781,7 @@ def phase_kernels_s2(card):
             f"fold (max |err| {err:.3g}), repeats bitwise, zero weights "
             f"return acc")
         del u, w, acc, zero
-    for n, d in ROBUST_SHAPES:
-        errs = []
-        for ties in (False, True):
-            u = torch.randn((n, d), generator=gen, device="cuda")
-            if ties:
-                u = with_ties(u)
-            for f in (0, 5):
-                errs.append(check_robust(u, f))
-        log(f"[kernels] robust_aggregate ({n}, {d}): median equal to the "
-            f"plain version and the median rule, trimmed mean max |err| "
-            f"{max(errs):.3g}, f in (0, 5), with and without ties")
-        rows[("robust_aggregate", n, d)] = max(errs)
-        del u
+    rows.update(check_robust_shapes(gen))
     torch.cuda.empty_cache()
 
     # timings: the Fig. 4 shape for both kernels, VGG-11's for the fold
@@ -738,16 +798,9 @@ def phase_kernels_s2(card):
              lambda u, w, acc: torch.addmv(acc, u.T, w)), (u, w, acc),
             bound_ms(n * d * 4 + n * 4 + 2 * d * 4, 2 * n * d),
             check_update(u, w, acc), iters, warm)
-        if not big:
-            pairs = oddeven_pairs(n)
-            timed[("robust_aggregate", n, d)] = time_kernel(
-                card, "robust_aggregate", (n, d),
-                (lambda u: robust_agg_cuda(u, F_BUDGET),
-                 lambda u: robust_agg_plain(u, F_BUDGET),
-                 lambda u: torch.median(u, 0)), (u,),
-                bound_ms(n * d * 4 + 2 * d * 4, d * (4 * pairs + 7 * n)),
-                check_robust(u, F_BUDGET))
-        del u, w, acc
+        del w, acc
+        timed[("robust_aggregate", n, d)] = time_robust(card, u, iters, warm)
+        del u
     torch.cuda.empty_cache()
     log("[kernels] slice 2: both kernels agree with their plain versions "
         "at every shape and repeat bitwise")
@@ -1042,17 +1095,9 @@ def time_dequant(card, inputs, err, iters=200, warmup=20):
         bound_ms(n * d + 4 * n * scale.shape[1] + 4 * n + 8 * d, 3 * n * d),
         err, iters, warmup)
 
-    def was(q, s, w, a):
-        return dequant_fold_update_percolumn_cuda(q, s, w, a, QBLOCK)
-
-    cold = cold_sets(*inputs)
-    was_ms = cuda_ms(was, cold, iters, warmup)[0]
-    del cold
-    was_warm = cuda_ms(was, [inputs], iters, warmup)[0]
-    log(f"[kernels] dequant_fold_update ({n}, {d}): the pre-redesign kernel "
-        f"in this run {was_ms * 1e3:.2f} us cold / {was_warm * 1e3:.2f} us "
-        f"warm, the redesign {r['ms'] * 1e3:.2f} / {r['warm_ms'] * 1e3:.2f} "
-        f"us ({was_ms / r['ms']:.2f}x cold) [{card}]")
+    time_v1(card, "dequant_fold_update", (n, d),
+            lambda q, s, w, a: dequant_fold_update_percolumn_cuda(
+                q, s, w, a, QBLOCK), inputs, r, iters, warmup)
     return r
 
 
@@ -1369,21 +1414,28 @@ def attn_pairs(S, window):
 def check_flash(q, k, v, window, softcap):
     """The flash kernel against its plain version (the reference's
     formula).  fp32: within atol 1e-4 / rtol 1e-4 (the online softmax sums
-    in another order).  bf16, two checks, each within one bf16 step of the
+    in another order), and so is the pre-redesign SIMT kernel, timed
+    beside it.  bf16, two checks, each within one bf16 step of the
     plain version (atol 1e-5, rtol 2^-7): (a) on these random inputs (the
     kernel splits p into two bf16 halves for p·v, so p keeps about 16 bits
     against the plain version's fp32); (b) the mask probe (q = 0, one-hot
     v: p = 1 exactly, so nothing rounds but the output): a key wrongly
     admitted or dropped moves a column by about 2 % at h2o-danube's
     window.  -> (max |err| on the random inputs, max |err| / bar there,
-    max |err| on the probe)."""
+    max |err| on the probe; fp32: the v1 kernel's max |err|)."""
     out = flash_attention_cuda(q, k, v, window, softcap)
     torch.cuda.synchronize()
     ref = flash_attention_plain(q, k, v, window, softcap)
     if q.dtype == torch.float32:
-        torch.testing.assert_close(out.float(), ref.float(), atol=1e-4,
-                                   rtol=1e-4)
-        return (out.float() - ref.float()).abs().max().item(), None, None
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+        if not torch.equal(out, flash_attention_cuda(q, k, v, window,
+                                                     softcap)):
+            raise AssertionError(f"fp32 flash_attention not bitwise "
+                                 f"repeatable at {tuple(q.shape)}")
+        old = flash_attention_simt_v1_cuda(q, k, v, window, softcap)
+        torch.testing.assert_close(old, ref, atol=1e-4, rtol=1e-4)
+        return ((out - ref).abs().max().item(), None, None,
+                (old - ref).abs().max().item())
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     # at most 1 within one bf16 step, elementwise
@@ -1401,7 +1453,60 @@ def check_flash(q, k, v, window, softcap):
     ref = flash_attention_plain(pq, pk, pv, window, softcap)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-5,
                                rtol=2.0 ** -7)
-    return err, ratio, (out.float() - ref.float()).abs().max().item()
+    return err, ratio, (out.float() - ref.float()).abs().max().item(), None
+
+
+# the fp32 kernel's other layouts: (B, H, K, Sq, Sk, dh, window, softcap,
+# q's offset in floats); together they take both copy widths (dh % 4 != 0
+# and a base off 16 bytes take 4-byte copies), every head-dim bucket, key
+# splits with a window and at dh = 256, Sq != Sk both ways and a window
+# of one key
+FP32_CASES = [(1, 2, 1, 700, 700, 33, 300, None, 0),
+              (1, 4, 4, 257, 257, 64, None, None, 1),
+              (1, 2, 2, 50, 130, 16, None, None, 0),
+              (1, 2, 1, 130, 50, 8, None, 30.0, 0),
+              (1, 2, 1, 80, 80, 1, None, None, 0),
+              (1, 2, 2, 300, 300, 200, 100, 20.0, 0),
+              (1, 1, 1, 1000, 1000, 256, None, None, 0),
+              (1, 2, 2, 100, 100, 32, 1, None, 0),
+              (2, 6, 3, 333, 333, 80, 64, None, 0),
+              (1, 4, 2, 515, 515, 128, None, 30.0, 0)]
+
+
+def check_flash_fp32_cases(gen):
+    """FP32_CASES against the plain version at 1e-4, bitwise repeatable;
+    the cases must cover both copy widths, every bucket and both the
+    split and the unsplit launch."""
+    seen = set()
+    for (B, H, K, Sq, Sk, dh, window, softcap, off) in FP32_CASES:
+        n = B * H * Sq * dh
+        q = torch.randn(n + off, generator=gen, device=DEV)[off:]
+        q = q.view(B, H, Sq, dh) * (3.0 if softcap else 1.0)
+        k = torch.randn((B, K, Sk, dh), generator=gen, device=DEV)
+        v = torch.randn((B, K, Sk, dh), generator=gen, device=DEV)
+        plan = fp32_plan(B, H, Sq, Sk, dh, window,
+                         [s for t in (q, k, v) for s in t.stride()[:3]],
+                         [t.data_ptr() for t in (q, k, v)],
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+        seen |= {("copy", plan.copy_bytes), ("bucket", plan.bucket),
+                 ("split", plan.splits > 1)}
+        out = flash_attention_cuda(q, k, v, window, softcap)
+        torch.cuda.synchronize()
+        ref = flash_attention_plain(q, k, v, window, softcap)
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+        if not torch.equal(out, flash_attention_cuda(q, k, v, window,
+                                                     softcap)):
+            raise AssertionError(f"fp32 flash_attention not bitwise "
+                                 f"repeatable at {(B, H, K, Sq, Sk, dh)}")
+    want = ({("copy", 16), ("copy", 4), ("split", True), ("split", False)}
+            | {("bucket", b) for b in FP32_BUCKETS})
+    if not want <= seen:
+        raise AssertionError(f"FP32_CASES miss {sorted(want - seen)}")
+    log(f"[kernels-s4] fp32 flash_attention at (B, H, K, Sq, Sk, dh, window, "
+        f"softcap, q offset) in {FP32_CASES}: within 1e-4 of the plain "
+        f"version, bitwise repeatable; 16- and 4-byte copies, every bucket, "
+        f"split and unsplit launches")
 
 
 def window_mask(S, window, device):
@@ -1413,10 +1518,10 @@ def window_mask(S, window, device):
     return m
 
 
-def time_flash(card, gen):
+def time_flash(card, gen, dtypes=(torch.bfloat16, torch.float32)):
     timed = {}
     for (B, H, K, S, dh, window, softcap, tag) in FLASH_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             qscale = 6.0 if softcap else 1.0      # scores reach the cap
             q = (torch.randn((B, H, S, dh), generator=gen, device=DEV)
                  * qscale).to(dtype)
@@ -1424,7 +1529,8 @@ def time_flash(card, gen):
                             ).to(dtype)
             v = torch.randn((B, K, S, dh), generator=gen, device=DEV
                             ).to(dtype)
-            err, ratio, probe_err = check_flash(q, k, v, window, softcap)
+            err, ratio, probe_err, v1_err = check_flash(q, k, v, window,
+                                                        softcap)
             nbytes = q.element_size() * (2 * q.numel() + k.numel()
                                          + v.numel())
             flops = 4 * dh * attn_pairs(S, window) * B * H
@@ -1466,9 +1572,21 @@ def time_flash(card, gen):
                 sdpa += f", is_causal {causal * 1e3:.2f} us (cold)"
                 r["library_ms"] = min(r["library_ms"], causal)
             bf16_bound = flops / BF16_FLOPS_PER_S * 1e3
-            probe = "" if probe_err is None else \
+            extra = "" if probe_err is None else \
                 (f"; max |err| / one bf16 step {ratio:.3g}; mask probe max "
                  f"|err| {probe_err:.3g}")
+            if dtype == torch.float32:
+                r["v1_ms"] = time_v1(
+                    card, f"flash_attention {tag}", shape,
+                    lambda q, k, v: flash_attention_simt_v1_cuda(
+                        q, k, v, window, softcap), (q, k, v), r, iters, warm)
+                extra = (f"; {bound[0] / r['ms']:.1%} of the fp32 bound; "
+                         f"the pre-redesign kernel {r['v1_ms'] * 1e3:.2f} us "
+                         f"(max |err| {v1_err:.3g}), "
+                         f"{r['v1_ms'] / r['ms']:.2f}x the redesign's time")
+                if r["library_ms"] is not None:
+                    extra += (f"; the redesign at "
+                              f"{r['library_ms'] / r['ms']:.2f}x sdpa's speed")
             log(f"[kernels-s4] flash_attention {tag} {shape}: "
                 f"{flops / 1e9:.1f} GFLOP, bound "
                 f"{flops / peak * 1e3:.3f} ms at {peak / 1e12:.0f} TFLOP/s "
@@ -1476,7 +1594,7 @@ def time_flash(card, gen):
                 f"({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); kernel "
                 f"{flops / r['ms'] / 1e9:.2f} TFLOP/s, "
                 f"{bf16_bound / r['ms']:.1%} of the bf16 bound "
-                f"({bf16_bound:.3f} ms); library {sdpa}{probe} [{card}]")
+                f"({bf16_bound:.3f} ms); library {sdpa}{extra} [{card}]")
             timed[(tag, dtype)] = r
             del q, k, v
             torch.cuda.empty_cache()
@@ -1522,6 +1640,7 @@ def time_scan(card, gen):
 def phase_kernels_s4(card):
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(1357)
+    check_flash_fp32_cases(gen)
     flash = time_flash(card, gen)
     scan = time_scan(card, gen)
     # the int8 fold at [comm]'s block shape: 64 clients of the 3-NN
@@ -1757,9 +1876,10 @@ def serve_model(card, arch, B, S):
     return counts
 
 
-def check_fp32(arch, B, S):
-    """The fp32 variant of a model at full size: the kernel-path prefill
-    against the plain path (within 2e-3 of the largest logit: both sum in
+def check_fp32(card, arch, B, S):
+    """The fp32 variant of a model at full size: the kernel-path prefill,
+    timed (a second call, the counts set to 0 just before it), against the
+    plain path (within 2e-3 of the largest logit: both sum in
     fp32, in other orders); then decode against the forward at T = 64
     with attn_direct_max = 32, so that the forward runs the kernels, to
     2e-3 as tests/test_decode_equivalence.py holds it; for Mamba, the
@@ -1770,9 +1890,25 @@ def check_fp32(arch, B, S):
     params = models.init(gen, cfg, DEV)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device=DEV)
+    lg, _ = make_prefill(cfg)(params, tokens)      # warms the allocator
+    del lg
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
     lg, _ = make_prefill(cfg)(params, tokens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if ops.launch_counts() != zoo_counts(cfg):
+        raise AssertionError(f"{arch} fp32 prefill launches "
+                             f"{ops.launch_counts()}")
+    t0 = time.perf_counter()
     lg_p, _ = make_prefill(dataclasses.replace(cfg, use_kernels=False))(
         params, tokens)
+    torch.cuda.synchronize()
+    ms_p = (time.perf_counter() - t0) * 1e3
+    log(f"[serve] {arch} fp32 prefill {B} x {S} tokens through the kernels "
+        f"{ms:.1f} ms ({B * S / ms * 1e3:.0f} tokens/s, launches "
+        f"{cfg.n_layers}), the plain path {ms_p:.1f} ms (TF32 off) [{card}]")
     err = (lg - lg_p).abs().max().item()
     lmax = lg_p[..., :cfg.vocab_size].abs().max().item()
     if not err <= 2e-3 * max(lmax, 1.0):
@@ -1826,7 +1962,7 @@ def phase_serve(card):
     for arch, (B, S) in SERVE_SHAPES.items():
         c = serve_model(card, arch, B, S)
         counts.update({k: v for k, v in c.items() if v})
-        check_fp32(arch, *FP32_SHAPES[arch])
+        check_fp32(card, arch, *FP32_SHAPES[arch])
     log(f"[serve] both models at full published size: launches exact, the "
         f"kernel path agrees with the plain path and decode with the "
         f"forward ({time.perf_counter() - t0:.1f} s)")
