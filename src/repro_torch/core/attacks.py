@@ -11,7 +11,7 @@ test can hand the port the draws the reference made.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ class AttackConfig:
 
 
 UPDATE_ATTACKS = ("gaussian", "sign_flip", "same_value", "scale")
+DATA_ATTACKS = ("label_flip", "backdoor")
 
 
 def attack_update(update: torch.Tensor, kind: str, cfg: AttackConfig,
@@ -51,6 +52,19 @@ def attack_update(update: torch.Tensor, kind: str, cfg: AttackConfig,
         # already poisoned), "scale" the stealthy factor probing C2's band
         return update * cfg.scale
     return update
+
+
+def attack_update_tree(update: Dict[str, torch.Tensor], kind: str,
+                       cfg: AttackConfig,
+                       generator: Optional[torch.Generator] = None,
+                       noise: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """:func:`attack_update` leaf by leaf over dict params.  Under
+    ``gaussian`` each leaf takes its own draw from ``generator``, in the
+    dict's order, or its standard normal array from ``noise[leaf]``."""
+    return {k: attack_update(u, kind, cfg, generator,
+                             None if noise is None else noise[k])
+            for k, u in update.items()}
 
 
 def flip_labels(labels: torch.Tensor, n_classes: int) -> torch.Tensor:

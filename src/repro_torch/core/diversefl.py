@@ -37,6 +37,31 @@ class DiverseFLConfig:
 # Similarity statistics and the C1/C2 criterion
 # ----------------------------------------------------------------------
 
+def similarity_stats(z: torch.Tensor, g: torch.Tensor):
+    """Flat-vector stats: (z·g, ‖z‖², ‖g‖²) in fp32."""
+    z = z.to(torch.float32).reshape(-1)
+    g = g.to(torch.float32).reshape(-1)
+    return torch.dot(z, g), torch.dot(z, z), torch.dot(g, g)
+
+
+def _tree_vdot(a: Params, b: Params, per_row: bool = False) -> torch.Tensor:
+    """Per-leaf fp32 products, each leaf reduced to a scalar (or, with
+    ``per_row``, to one sum per row of its leading axis), then summed over
+    the leaves in sorted key order, the order of the reference's pytree
+    leaves."""
+    parts = [a[k].to(torch.float32) * b[k].to(torch.float32)
+             for k in sorted(a)]
+    parts = [p.reshape(p.shape[0], -1).sum(1) if per_row else p.sum()
+             for p in parts]
+    return torch.stack(parts).sum(0)
+
+
+def similarity_stats_tree(z_tree: Params, g_tree: Params):
+    """Dict-params stats: (z·g, ‖z‖², ‖g‖²), fp32 per-leaf partials."""
+    return (_tree_vdot(z_tree, g_tree), _tree_vdot(z_tree, z_tree),
+            _tree_vdot(g_tree, g_tree))
+
+
 def similarity_stats_matrix(U: torch.Tensor, G: torch.Tensor):
     """Stacked-matrix stats: U, G (N, D) -> per-client (z·g, ‖z‖², ‖g‖²).
     The plain version of the similarity kernel."""
@@ -117,3 +142,26 @@ def masked_mean_flat(U: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     :func:`masked_sum_fold`; the plain version of the masked-mean kernel."""
     s, n = masked_sum_fold(U, mask)
     return s / n.clamp_min(1.0)
+
+
+def masked_mean(updates: Params, mask: torch.Tensor) -> Params:
+    """updates: dict params with a leading client axis N; mask: (N,) bool
+    or float.  The reference's ``(u * m).sum(0) / max(Σm, 1)`` per leaf,
+    not the left fold, so it agrees with Eq. 6 to fp32 tolerance."""
+    m = mask.to(torch.float32)
+    denom = m.sum().clamp_min(1.0)
+    return {k: (u.to(torch.float32) * m.reshape((-1,) + (1,) * (u.dim() - 1))
+                ).sum(0) / denom for k, u in updates.items()}
+
+
+def diversefl_aggregate(updates: Params, guides: Params,
+                        cfg: DiverseFLConfig):
+    """Steps 4 and 5 over dict params whose leaves have a leading client
+    axis N.  Returns (aggregated update, keep mask (N,), stats dict with
+    ``dot``, ``z_norm_sq``, ``g_norm_sq`` and ``c2``)."""
+    dot = _tree_vdot(updates, guides, per_row=True)
+    zz = _tree_vdot(updates, updates, per_row=True)
+    gg = _tree_vdot(guides, guides, per_row=True)
+    mask = diversefl_mask(dot, zz, gg, cfg)
+    return masked_mean(updates, mask), mask, {
+        "dot": dot, "z_norm_sq": zz, "g_norm_sq": gg, "c2": c2_ratio(zz, gg)}

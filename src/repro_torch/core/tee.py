@@ -30,6 +30,13 @@ from ..device import DeviceLike, resolve_device
 EPC_BYTES = 128 * 2 ** 20          # SGX v1 enclave page cache (paper Sec. IV-D)
 PAGE_BYTES = 4096                  # SGX EPC page granularity
 
+# Fig. 9 as the paper reports it for its SGX enclave: how many clients one
+# enclave supports at 1 % and 3 % sampling.
+FIG9_CLIENTS_1PCT = {"mnist_softmax": 490, "mnist_3nn": 320,
+                     "cifar10_vgg11": 150, "cifar100_vgg11": 119}
+FIG9_CLIENTS_3PCT = {"mnist_softmax": 105, "mnist_3nn": 92,
+                     "cifar10_vgg11": 45, "cifar100_vgg11": 38}
+
 
 @dataclasses.dataclass
 class AttestationQuote:

@@ -9,7 +9,7 @@ arrays, so a test can feed the port the exact draws the reference made.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 
@@ -18,6 +18,16 @@ def _draw_device(generator: Optional[torch.Generator],
                  default: torch.device) -> torch.device:
     """Draws happen on the generator's device (torch requires it)."""
     return generator.device if generator is not None else default
+
+
+@dataclasses.dataclass
+class ClientDataset:
+    x: torch.Tensor
+    y: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return int(self.y.shape[0])
 
 
 @dataclasses.dataclass
@@ -90,3 +100,27 @@ class FederatedData:
             raise ValueError(f"enclave sample idx must be ({self.n_clients}, "
                              f"{s}), got {tuple(idx.shape)}")
         return self._gather(idx)
+
+
+def batch_iterator(generator: Optional[torch.Generator], x: torch.Tensor,
+                   y: torch.Tensor, batch_size: int,
+                   idx: Optional[torch.Tensor] = None
+                   ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Minibatches of ``batch_size`` rows drawn with replacement: endless
+    draws from ``generator``, or one batch per row of ``idx`` (steps,
+    batch_size) and then stop."""
+    if idx is None:
+        return _draw_batches(generator, x, y, batch_size)
+    if idx.dim() != 2 or idx.shape[1] != batch_size:
+        raise ValueError(f"batch idx must be (steps, {batch_size}), got "
+                         f"{tuple(idx.shape)}")
+    return ((x[rows], y[rows]) for rows in idx.to(y.device))
+
+
+def _draw_batches(generator, x, y, batch_size):
+    n = int(y.shape[0])
+    while True:
+        rows = torch.randint(0, n, (batch_size,), generator=generator,
+                             device=_draw_device(generator, y.device))
+        rows = rows.to(y.device)
+        yield x[rows], y[rows]

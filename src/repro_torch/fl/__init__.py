@@ -6,4 +6,4 @@ from .server import (AggregationContext, SecureServer, aggregate,
 from .simulator import (FLConfig, Federation, make_round_body,
                         run_federated_training)
 from .telemetry import GENESIS, AuditLog, verify_entries
-from . import metrics
+from . import metrics, rsa

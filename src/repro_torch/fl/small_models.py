@@ -63,6 +63,22 @@ class SmallModel:
             grads = torch.autograd.grad(total, list(leaves.values()))
         return dict(zip(leaves, grads))
 
+    def accuracy(self, params: Params, x: torch.Tensor, y: torch.Tensor,
+                 batch: int = 2048) -> float:
+        """Fraction of ``(x, y)`` classified correctly, as a host float:
+        an integer count of correct predictions over batches of ``batch``
+        rows, on the params' device, divided by n.  The host-side
+        counterpart of ``metrics.accuracy``, which stays on the device."""
+        dev = next(iter(params.values())).device
+        correct = 0
+        n = int(y.shape[0])
+        with torch.no_grad():
+            for i in range(0, n, batch):
+                lg = self.apply(params, x[i:i + batch].to(dev))
+                correct += int((lg.argmax(-1) == y[i:i + batch].to(dev))
+                               .sum())
+        return correct / n
+
 
 def _glorot(generator: torch.Generator, shape, device) -> torch.Tensor:
     fan_in = shape[-2] if len(shape) >= 2 else shape[0]

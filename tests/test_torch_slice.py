@@ -163,7 +163,7 @@ def test_paper_configuration_meets_the_reference_bars(paper_data):
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py", ROOT / "kernel_probe.py"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():
