@@ -99,7 +99,25 @@ Phases (any failure raises and the script exits non-zero):
                diversefl, fltrust and mean.  [tab2-4]: f = 5 and 17 x 4
                attacks.  [fig8]: the screen pretrained on 10, 5 and 2 %.
                [fig9]: guide time per client into Enclave.max_clients
-  9. result  - a ``kernels`` JSON line, then ``{"ok": true, ...}`` last
+  9. slice 9 - the round engine (one host sync a run, every other
+               PyTorch-visible sync refused by set_sync_debug_mode("error"))
+               and its CUDA graph against the per-round loop, bitwise, with
+               launch counts (a graph's are capture x replays).  [engine]:
+               S1 (60 rounds, eval every 10; ms/round of the three; a
+               profiled run of each engine whose kernels, counted by name,
+               equal the launches asserted, whose runtime sync calls all
+               fall inside host_sync, and whose device time gives the busy
+               share), the streamed int8 3-NN, 1,024 clients in blocks of
+               64 on the softmax regression.  [async]: 256 clients in
+               blocks of 64 on the 3-NN: intermittent NaN faults (rate 0.2,
+               cohort 0.9) against fault-free oracle, stragglers through a
+               32-slot buffer, trivial async == sync; the weighted fold at
+               (64, 199210).  [telemetry]: on == off for S1 and the
+               intermittent run, the audit chain, observe's selftest on the
+               card.  [sweep]: sweep_bench.py's 96-cell grid, every cell
+               bitwise its solo run, one build (capture) per group, cells/s
+ 10. result  - a capture that reads the card on the host fails by name; a
+               ``kernels`` JSON line, then ``{"ok": true, ...}`` last
 """
 import dataclasses
 import json
@@ -130,9 +148,13 @@ from repro_torch.core.tee import (FIG9_CLIENTS_1PCT,  # noqa: E402
 from repro_torch.data import (FederatedData, make_cifar_like,  # noqa: E402
                               make_mnist_like, partition_sorted_shards)
 from repro_torch.fl import (FLConfig, Federation,  # noqa: E402
-                            make_round_body, mlp3, run_federated_training,
-                            small_cnn, softmax_regression, vgg11)
+                            RoundEngine, SweepSpec, make_round_body, mlp3,
+                            run_federated_sweep, run_federated_training,
+                            small_cnn, softmax_regression, telemetry,
+                            trace_counter, vgg11)
+from repro_torch.fl import simulator as fl_simulator  # noqa: E402
 from repro_torch.fl.compression import get_codec  # noqa: E402
+from repro_torch.fl.faults import FaultConfig  # noqa: E402
 from repro_torch.fl.rsa import run_rsa  # noqa: E402
 from repro_torch.fl.server import (AggregationContext,  # noqa: E402
                                    aggregate)
@@ -154,6 +176,7 @@ from repro_torch.kernels.robust_agg import (robust_agg_cuda,  # noqa: E402
                                             robust_agg_v1_cuda)
 from repro_torch.kernels.similarity import (similarity_cuda,  # noqa: E402
                                             similarity_plain)
+from repro_torch.launch import observe  # noqa: E402
 from repro_torch.launch.serve import (make_prefill,  # noqa: E402
                                       make_serve_step)
 from repro_torch.optim import inv_sqrt_lr  # noqa: E402
@@ -2372,6 +2395,539 @@ def phase_fig9(card):
     log(f"[fig9] done ({time.perf_counter() - t0:.1f} s)")
 
 
+# ----------------------------------------------------------------------
+# slice 9: the round engine, telemetry, async rounds and sweeps
+# ----------------------------------------------------------------------
+
+class HostSyncs:
+    """Counts ``simulator.host_sync`` calls (the runs' one device-to-host
+    point) while installed."""
+
+    def __enter__(self):
+        self.n, self.real = 0, fl_simulator.host_sync
+
+        def counted(tree):
+            self.n += 1
+            with torch.profiler.record_function("host_sync"):
+                return self.real(tree)
+        fl_simulator.host_sync = counted
+        return self
+
+    def __exit__(self, *exc):
+        fl_simulator.host_sync = self.real
+
+
+# the CUDA runtime calls that block the host on the card
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D")
+# each FL wrapper launches one kernel a call; masked_aggregate and
+# masked_agg_update launch the same template, so the trace counts them
+# together
+TRACED_FAMILIES = {"similarity_stats_kernel": ("similarity_stats",),
+                   "masked_agg_kernel": ("masked_aggregate",
+                                         "masked_agg_update"),
+                   "dequant_fold": ("dequant_fold_update",),
+                   "robust_agg_kernel": ("robust_aggregate",)}
+
+
+def read_trace(prof):
+    """What a profiled ``mode_run`` shows on the card and in the runtime:
+    device busy ms, the FL kernels' executions by family (each kernel
+    that ran, a graph replay's too), and the sync calls made inside the
+    run's ``fl_run`` range, split into those inside ``host_sync`` and the
+    rest."""
+    busy = sum(t for t, _ in device_kernels(prof))
+    traced = dict.fromkeys(TRACED_FAMILIES, 0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for fam in traced:
+            if fam in e.key:
+                traced[fam] += e.count
+    events = prof.events()
+
+    def ranges(name):
+        return [(e.time_range.start, e.time_range.end) for e in events
+                if e.name == name]
+    runs, fetches = ranges("fl_run"), ranges("host_sync")
+    inside, outside = 0, []
+    for e in events:
+        if e.name not in SYNC_CALLS:
+            continue
+        t = e.time_range
+        if not any(a <= t.start and t.end <= b for a, b in runs):
+            continue
+        if any(a <= t.start and t.end <= b for a, b in fetches):
+            inside += 1
+        else:
+            outside.append(e.name)
+    return {"busy": busy, "traced": traced, "syncs_in_host_sync": inside,
+            "syncs_elsewhere": outside}
+
+
+def mode_run(model, fed, cfg, mode, engine=None, guard=False, lr0=0.05,
+             profile=False):
+    """One run of ``cfg`` through ``run_federated_training``: ``mode`` is
+    "loop" (the per-round loop), "engine" (the one-sync engine) or
+    "graph" (the engine replaying a captured round); ``engine`` reuses a
+    built one.  ``guard`` runs it under ``torch.cuda.set_sync_debug_mode(
+    "error")``, which only ``host_sync`` lifts.  Counts are 0 just before
+    and read just after.  Returns (history, ms/round, host syncs, launch
+    counts, engine, :func:`read_trace` of the run or None)."""
+    if mode != "loop" and engine is None:
+        engine = RoundEngine(model, fed, cfg, graph=mode == "graph")
+    replays0 = engine.replays if engine is not None else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profile else None
+    with HostSyncs() as syncs:
+        if prof is not None:
+            prof.__enter__()
+        if guard:
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            with torch.profiler.record_function("fl_run"):
+                h = run_federated_training(model, fed, cfg, inv_sqrt_lr(lr0),
+                                           use_engine=mode != "loop",
+                                           engine=engine)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            if prof is not None:
+                prof.__exit__(None, None, None)
+    ms = (time.perf_counter() - t0) * 1e3 / cfg.rounds
+    counts = ops.launch_counts()
+    if mode == "graph":
+        # a replay repeats the captured launches; the wrappers count the
+        # capture only, so the run's launches are capture x replays (the
+        # profiled run counts the kernels that ran, read_trace)
+        reps = engine.replays - replays0
+        counts = {k: counts[k] + v * reps
+                  for k, v in engine.captured_launches.items()}
+    trace = read_trace(prof) if profile else None
+    return h, ms, syncs.n, counts, engine, trace
+
+
+def three_modes(card, tag, model, fed_fn, cfg, want, profile=False):
+    """The per-round loop, the engine and the graph on ``cfg``: each
+    engine's first run warms it (the graph's captures), the second is
+    timed under the sync guard; all three bitwise equal, launches as
+    ``want``, one host sync for the engines.  -> (ms dict, history)."""
+    mode_run(model, fed_fn(), cfg, "loop")                  # warm-up
+    h_loop, ms_loop, s_loop, c_loop, _, _ = mode_run(model, fed_fn(), cfg,
+                                                     "loop")
+    res = {"loop": ms_loop}
+    peak = {"loop": torch.cuda.max_memory_allocated() / 2 ** 30}
+    for mode in ("engine", "graph"):
+        fed = fed_fn()
+        _, _, _, _, eng, _ = mode_run(model, fed, cfg, mode)
+        h, ms, syncs, counts, _, _ = mode_run(model, fed, cfg, mode,
+                                              engine=eng, guard=True)
+        # the graph's private pool stays allocated between runs, so it
+        # counts in the peak of the run after the capture
+        peak[mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not same_run(h, h_loop):
+            raise AssertionError(f"{tag}: {mode} differs from the per-round "
+                                 f"loop")
+        if counts != want or c_loop != want:
+            raise AssertionError(f"{tag}: {mode} launches {counts}, loop "
+                                 f"{c_loop}, expected {want}")
+        if syncs != 1:
+            raise AssertionError(f"{tag}: {mode} made {syncs} host syncs")
+        res[mode] = ms
+        if profile:
+            # a third run, profiled: its device time over its own wall
+            # (the profiler's overhead in it) and over the second run's
+            # unprofiled wall; the kernels that ran, counted by name, must
+            # be the launches asserted; the runtime's sync calls inside
+            # the run must all be host_sync's
+            _, wall, _, _, _, tr = mode_run(model, fed, cfg, mode,
+                                            engine=eng, profile=True)
+            busy = tr["busy"]
+            want_traced = {fam: sum(want.get(k, 0) for k in names)
+                           for fam, names in TRACED_FAMILIES.items()}
+            if tr["traced"] != want_traced:
+                raise AssertionError(
+                    f"{tag}: {mode}: the profiler saw the FL kernels run "
+                    f"{tr['traced']} times, the launches asserted are "
+                    f"{want_traced}")
+            if tr["syncs_elsewhere"] or not tr["syncs_in_host_sync"]:
+                raise AssertionError(
+                    f"{tag}: {mode}: runtime sync calls in the profiled "
+                    f"run outside host_sync {tr['syncs_elsewhere']}, "
+                    f"inside {tr['syncs_in_host_sync']}")
+            log(f"[engine] {tag} {mode}: torch.profiler device busy "
+                f"{busy:.3f} ms in the profiled run, "
+                f"{100 * busy / (wall * cfg.rounds):.1f} % of its own "
+                f"{wall * cfg.rounds:.3f} ms wall (the profiler's overhead "
+                f"included), {100 * busy / (ms * cfg.rounds):.1f} % of the "
+                f"timed unprofiled run's {ms * cfg.rounds:.3f} ms; FL "
+                f"kernels that ran, by name: {nonzero(tr['traced'])}, as "
+                f"asserted; runtime sync calls ({', '.join(SYNC_CALLS)}) "
+                f"in the run: {tr['syncs_in_host_sync']}, all inside "
+                f"host_sync [{card}]")
+    log(f"[engine] {tag}: per-round loop {res['loop']:.4f} ms/round "
+        f"({s_loop} host syncs), engine {res['engine']:.4f}, graph "
+        f"{res['graph']:.4f} ms/round (1 host sync each, no other "
+        f"PyTorch-visible sync under set_sync_debug_mode('error')); "
+        f"bitwise equal; launches "
+        f"{nonzero(want)}; peak GiB loop {peak['loop']:.3f}, engine "
+        f"{peak['engine']:.3f}, graph {peak['graph']:.3f} [{card}]")
+    return res, h_loop
+
+
+def phase_engine(card):
+    """The one-sync engine and its CUDA graph against the per-round loop:
+    S1 (softmax regression, 23 clients, f = 5, diversefl under sign_flip,
+    60 rounds, eval every 10); the streamed int8 3-NN of [stream]; and
+    dispatch_bench.py's federation shape (1,024 clients in blocks of 64,
+    10 rounds, eval every round) on the paper's softmax regression."""
+    t0 = time.perf_counter()
+    data, tx, ty = make_federation_data()
+    soft = softmax_regression()
+    cfg = FLConfig(rounds=60, aggregator="diversefl",
+                   attack=AttackConfig(kind="sign_flip"), batch_size=50,
+                   eval_every=10, seed=SEED)
+
+    def s1_fed():
+        return Federation.create(soft, data, tx, ty, cfg, torch.Generator(
+            device="cuda").manual_seed(100 + SEED))
+    ms_s1, _ = three_modes(card, "S1 diversefl, 60 rounds", soft, s1_fed,
+                           cfg, expected_counts("diversefl", 60),
+                           profile=True)
+
+    mdata, mtx, mty = mnist_federation()
+    m3 = mlp3()
+    scfg = FLConfig(rounds=10, aggregator="diversefl",
+                    attack=AttackConfig(kind="sign_flip", sigma=10.0),
+                    batch_size=50, l2=0.0005, eval_every=10, seed=SEED,
+                    streaming=True, client_chunk=CHUNK, compression="int8")
+    blocks = -(-mdata.n_clients // CHUNK)
+    three_modes(card, "3-NN streamed int8, 10 rounds", m3,
+                lambda: Federation.create(m3, mdata, mtx, mty, scfg,
+                                          torch.Generator(device="cuda")
+                                          .manual_seed(100 + SEED)),
+                scfg, stream_counts("diversefl", "int8", 10, blocks))
+
+    n, per = 1024, 8
+    x, y = make_mnist_like(torch.Generator(device="cuda").manual_seed(0),
+                           n * per)
+    ndata = FederatedData.from_partitions(partition_sorted_shards(x, y, n),
+                                          10)
+    ncfg = FLConfig(n_clients=n, f=n // 5, rounds=10, eval_every=1,
+                    batch_size=1, l2=0.0, client_chunk=64,
+                    aggregator="diversefl",
+                    attack=AttackConfig(kind="sign_flip"), seed=SEED)
+    ms_n, _ = three_modes(
+        card, "N = 1024 in blocks of 64, 10 rounds", soft,
+        lambda: Federation.create(soft, ndata, tx, ty, ncfg,
+                                  torch.Generator(device="cuda")
+                                  .manual_seed(100 + SEED)),
+        ncfg, expected_counts("diversefl", 10))
+    log(f"[engine] S1 graph speed-up over the per-round loop "
+        f"{ms_s1['loop'] / ms_s1['graph']:.2f}x, over the eager engine "
+        f"{ms_s1['engine'] / ms_s1['graph']:.2f}x; N = 1024: "
+        f"{ms_n['loop'] / ms_n['graph']:.2f}x and "
+        f"{ms_n['engine'] / ms_n['graph']:.2f}x [{card}]")
+    log(f"[engine] done ({time.perf_counter() - t0:.1f} s)")
+
+
+ASYNC_N, ASYNC_CHUNK, ASYNC_RATE, ASYNC_BUFFER = 256, 64, 0.2, 32
+
+
+def async_federation():
+    """benchmarks/async_bench.py's federation shape (256 clients in blocks
+    of 64, f = 51 under sign_flip) on Fig. 4's 3-NN, 50 MNIST-like
+    samples a client, batch 10 (as [comm])."""
+    n, per = ASYNC_N, 50
+    x, y = make_mnist_like(torch.Generator(device="cuda").manual_seed(0),
+                           n * per)
+    tx, ty = make_mnist_like(torch.Generator(device="cuda").manual_seed(9),
+                             800)
+    data = FederatedData.from_partitions(partition_sorted_shards(x, y, n), 10)
+    kw = dict(n_clients=n, f=n // 5, batch_size=10, l2=0.0, streaming=True,
+              client_chunk=ASYNC_CHUNK)
+    return data, tx, ty, kw
+
+
+def stale_counts(fed):
+    """The staleness decisions committed to the audit chain."""
+    out = {"stale_buffered": 0, "stale_folded": 0, "stale_expired": 0}
+    for e in fed.server.audit.entries:
+        if e["kind"] in out:
+            out[e["kind"]] += e["data"]["count"]
+    return out
+
+
+def phase_async(card):
+    """Async rounds at async_bench.py's shape: intermittent NaN faults at
+    rate 0.2 with a 0.9 cohort against fault-free oracle (the reference's
+    bar: within 0.01), stragglers (delay 1) through a 32-slot buffer, and
+    trivial async against the sync run; then the weighted fold at the
+    streamed block's shape (64, 199,210)."""
+    t0 = time.perf_counter()
+    data, tx, ty, kw = async_federation()
+    model = mlp3()
+    acfg = AttackConfig(kind="sign_flip")
+    rounds, blocks = 40, ASYNC_N // ASYNC_CHUNK
+    intermittent = FaultConfig(kind="intermittent", rate=ASYNC_RATE)
+    fl_run(model, data, tx, ty, "diversefl", acfg, 1, tag="async",
+           expect=stream_counts("diversefl", "f32", 1, blocks),
+           fault=intermittent, cohort_participation=0.9, **kw)   # warm-up
+    out = {}
+    for tag, agg, extra, nblk in (
+            ("intermittent", "diversefl",
+             dict(fault=intermittent, cohort_participation=0.9), blocks),
+            ("oracle fault-free", "oracle", {}, blocks),
+            ("straggler", "diversefl",
+             dict(fault=FaultConfig(kind="straggler", rate=ASYNC_RATE,
+                                    delay=1), cohort_participation=0.9,
+                  staleness_buffer=ASYNC_BUFFER, telemetry=True),
+             blocks + 1)):
+        torch.cuda.empty_cache()
+        cfg = FLConfig(**{**kw, **extra, "rounds": rounds,
+                          "aggregator": agg, "attack": acfg,
+                          "eval_every": rounds, "seed": SEED})
+        fed = Federation.create(model, data, tx, ty, cfg, torch.Generator(
+            device="cuda").manual_seed(100 + SEED))
+        eng = RoundEngine(model, fed, cfg)
+        h, ms, syncs, counts, _, _ = mode_run(model, fed, cfg, "engine",
+                                              engine=eng, guard=True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = stream_counts(agg, "f32", rounds, nblk)
+        if counts != want or syncs != 1:
+            raise AssertionError(f"[async] {tag}: launches {counts} (want "
+                                 f"{want}), {syncs} host syncs")
+        if not all(bool(torch.isfinite(v).all())
+                   for v in h["params"].values()):
+            raise AssertionError(f"[async] {tag}: non-finite params")
+        out[tag] = (h, fed)
+        log(f"[async] 3-NN N = {ASYNC_N}, blocks of {ASYNC_CHUNK}, {tag}: "
+            f"acc {h['final_acc']:.4f} {rates(h)}, {ms:.3f} ms/round, "
+            f"peak {peak:.2f} GiB, 1 host sync (guarded), launches "
+            f"{nonzero(counts)} [{card}]")
+    faulty = out["intermittent"][0]["final_acc"]
+    oracle = out["oracle fault-free"][0]["final_acc"]
+    bar(faulty >= oracle - 0.01,
+        f"faulty diversefl {faulty} >= fault-free oracle {oracle} - 0.01")
+    st = stale_counts(out["straggler"][1])
+    bar(st["stale_buffered"] > 0 and st["stale_folded"] > 0
+        and st["stale_folded"] <= st["stale_buffered"],
+        f"staleness accounting balanced: {st}")
+    log(f"[async] bars met: intermittent diversefl {faulty:.4f} >= "
+        f"fault-free oracle {oracle:.4f} - 0.01; straggler audit {st} "
+        f"(folded <= buffered)")
+    triv = {}
+    for tag, extra in (("sync", {}), ("trivial async",
+                                      dict(cohort_participation=1.0))):
+        cfg = FLConfig(**{**kw, **extra, "rounds": 10,
+                          "aggregator": "diversefl", "attack": acfg,
+                          "eval_every": 5, "seed": SEED})
+        fed = Federation.create(model, data, tx, ty, cfg, torch.Generator(
+            device="cuda").manual_seed(100 + SEED))
+        triv[tag] = mode_run(model, fed, cfg, "engine")[0]
+    if not same_run(triv["sync"], triv["trivial async"]):
+        raise AssertionError("[async] trivial async differs from sync")
+    log("[async] trivial async (cohort 1.0, no fault) == sync, bitwise")
+    # the kernels at the async path's shapes: a block of 64 clients and
+    # the 32-slot staleness slab
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    d = D_MLP3
+    for n in (ASYNC_CHUNK, ASYNC_BUFFER):
+        u = torch.randn((n, d), generator=gen, device=DEV)
+        w = (torch.rand((n,), generator=gen, device=DEV) < 0.8).float()
+        acc = torch.randn((d,), generator=gen, device=DEV)
+        time_kernel(
+            card, "masked_agg_update", (n, d),
+            (masked_agg_update_cuda, masked_agg_update_plain,
+             lambda u, w, acc: torch.addmv(acc, u.T, w)), (u, w, acc),
+            bound_ms(n * d * 4 + n * 4 + 2 * d * 4, 2 * n * d),
+            check_update(u, w, acc))
+        g = u + 0.1 * torch.randn((n, d), generator=gen, device=DEV)
+        time_kernel(
+            card, "similarity_stats", (n, d),
+            (lambda z, g, S: similarity_cuda(z, g),
+             lambda z, g, S: similarity_plain(z, g),
+             lambda z, g, S: torch.bmm(S, S.transpose(1, 2))),
+            (u, g, torch.stack([u, g], dim=1)),
+            bound_ms(2 * n * d * 4 + n * 3 * 4, 6 * n * d),
+            check_similarity(u, g))
+        del u, g, w, acc
+    log(f"[async] done ({time.perf_counter() - t0:.1f} s)")
+    return out["intermittent"][0], kw
+
+
+def phase_telemetry(card, h_intermittent, async_kw):
+    """Telemetry on against off, bitwise, on S1 and the intermittent async
+    run; one host sync each; the audit chain verifies; the observe
+    selftest on the card."""
+    t0 = time.perf_counter()
+    data, tx, ty = make_federation_data()
+    soft = softmax_regression()
+    runs = {}
+    for tel in (False, True):
+        cfg = FLConfig(rounds=60, aggregator="diversefl",
+                       attack=AttackConfig(kind="sign_flip"), batch_size=50,
+                       eval_every=10, seed=SEED, telemetry=tel)
+        fed = Federation.create(soft, data, tx, ty, cfg, torch.Generator(
+            device="cuda").manual_seed(100 + SEED))
+        eng = RoundEngine(soft, fed, cfg)
+        h, ms, syncs, _, _, _ = mode_run(soft, fed, cfg, "engine",
+                                         engine=eng, guard=True)
+        runs[tel] = (h, ms, syncs, fed)
+    h_on, ms_on, syncs_on, fed_on = runs[True]
+    tags = fed_on.server.audit.counts().get("round_tags", 0)
+    if not (same_run(h_on, runs[False][0]) and syncs_on == 1 and tags == 60
+            and fed_on.server.audit.verify()):
+        raise AssertionError(f"[telemetry] S1: bitwise "
+                             f"{same_run(h_on, runs[False][0])}, syncs "
+                             f"{syncs_on}, round_tags {tags}")
+    log(f"[telemetry] S1: on == off bitwise, {ms_on:.4f} ms/round on "
+        f"against {runs[False][1]:.4f} off, 1 host sync, 60 round_tags, "
+        f"audit chain verified [{card}]")
+    mdata, mtx, mty, _ = async_federation()
+    cfg = FLConfig(**{**async_kw, "rounds": 40, "aggregator": "diversefl",
+                      "attack": AttackConfig(kind="sign_flip"),
+                      "eval_every": 40, "seed": SEED, "telemetry": True,
+                      "fault": FaultConfig(kind="intermittent",
+                                           rate=ASYNC_RATE),
+                      "cohort_participation": 0.9})
+    fed = Federation.create(mlp3(), mdata, mtx, mty, cfg, torch.Generator(
+        device="cuda").manual_seed(100 + SEED))
+    with telemetry.recording() as rec:
+        h, ms, syncs, _, _, _ = mode_run(mlp3(), fed, cfg, "engine")
+    syncs_rec = rec.counts().get("event:sync", 0)
+    kinds = fed.server.audit.counts()
+    if not (same_run(h, h_intermittent) and syncs == 1 and syncs_rec == 1
+            and kinds.get("cohort_resample") == 40
+            and fed.server.audit.verify()):
+        raise AssertionError(f"[telemetry] intermittent: bitwise "
+                             f"{same_run(h, h_intermittent)}, syncs "
+                             f"{syncs}/{syncs_rec}, audit {kinds}")
+    log(f"[telemetry] async intermittent: on == off bitwise, {ms:.3f} "
+        f"ms/round, 1 host sync (1 sync event), audit {kinds} verified "
+        f"[{card}]")
+    if not observe.selftest(device="cuda"):
+        raise AssertionError("[telemetry] observe selftest failed")
+    log(f"[telemetry] done ({time.perf_counter() - t0:.1f} s)")
+
+
+SWEEP_ATTACKS = (AttackConfig(kind="gaussian", sigma=1e4),
+                 AttackConfig(kind="sign_flip"),
+                 AttackConfig(kind="label_flip"),
+                 AttackConfig(kind="backdoor", source_class=1,
+                              target_class=2),
+                 AttackConfig(kind="gaussian", sigma=1e2),
+                 AttackConfig(kind="backdoor", source_class=1,
+                              target_class=2, scale=2.0))
+
+
+def phase_sweep(card):
+    """sweep_bench.py's grid (6 attacks x diversefl/oracle/mean/fltrust x
+    4 seeds, 256 clients, 20 rounds, eval every 10) on Fig. 3's softmax
+    regression: each cell bitwise its solo run, one engine build per
+    structural group (one capture with the graph), cells/s sequential
+    against grouped, eager and graphed."""
+    t0 = time.perf_counter()
+    n, per = 256, 50
+    x, y = make_mnist_like(torch.Generator(device="cuda").manual_seed(0),
+                           n * per)
+    tx, ty = make_mnist_like(torch.Generator(device="cuda").manual_seed(9),
+                             800)
+    data = FederatedData.from_partitions(partition_sorted_shards(x, y, n), 10)
+    model = softmax_regression()
+    base = FLConfig(n_clients=n, f=n // 5, rounds=20, eval_every=10,
+                    batch_size=10, l2=0.0, seed=SEED)
+    spec = SweepSpec(base=base, seeds=(0, 1, 2, 3),
+                     aggregators=("diversefl", "oracle", "mean", "fltrust"),
+                     attacks=SWEEP_ATTACKS)
+    cells = spec.cells()
+    fed = Federation.create(model, data, tx, ty, base, torch.Generator(
+        device="cuda").manual_seed(100 + SEED))
+    lr = inv_sqrt_lr(0.05)
+    run_federated_training(model, fed, cells[0].cfg, lr)         # warm-up
+    rates_ = {}
+    grouped = {}
+    for graph in (False, True):
+        torch.cuda.synchronize()
+        with trace_counter() as tc, HostSyncs() as syncs:
+            t1 = time.perf_counter()
+            res = run_federated_sweep(model, fed, spec, lr, graph=graph)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+        counters = tc.snapshot()
+        want = {"build": 16, "capture": 16 if graph else 0}
+        if counters != want or syncs.n != 16:
+            raise AssertionError(f"[sweep] graph={graph}: counters "
+                                 f"{counters}, {syncs.n} host syncs; want "
+                                 f"{want}, 16")
+        grouped[graph] = res
+        rates_[("grouped", graph)] = len(cells) / dt
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for cell, h in zip(cells, res):
+            eng = RoundEngine(model, fed, cell.cfg, graph=graph)
+            solo = run_federated_training(model, fed, cell.cfg, lr,
+                                          engine=eng)
+            if not same_run(solo, h):
+                raise AssertionError(f"[sweep] cell {cell.cfg} "
+                                     f"(graph={graph}) differs from its "
+                                     f"solo run")
+        torch.cuda.synchronize()
+        rates_[("sequential", graph)] = len(cells) / (time.perf_counter()
+                                                      - t1)
+    if not all(same_run(a, b) for a, b in zip(grouped[False],
+                                              grouped[True])):
+        raise AssertionError("[sweep] graphed cells differ from eager ones")
+    best = {k: max(h["final_acc"] for c, h in zip(cells, grouped[False])
+                   if c.cfg.aggregator == k)
+            for k in ("diversefl", "oracle", "mean", "fltrust")}
+    log(f"[sweep] {len(cells)} cells in 16 structural groups: each cell "
+        f"bitwise its solo run, eager and graphed; 16 builds, 16 captures "
+        f"with the graph, 1 host sync a group; cells/s sequential "
+        f"{rates_[('sequential', False)]:.2f} / grouped "
+        f"{rates_[('grouped', False)]:.2f} eager, sequential "
+        f"{rates_[('sequential', True)]:.2f} / grouped "
+        f"{rates_[('grouped', True)]:.2f} graphed (solo runs include their "
+        f"engine build and capture); best final acc per rule {best} [{card}]")
+    log(f"[sweep] done ({time.perf_counter() - t0:.1f} s)")
+
+
+def check_capture_failure(card):
+    """A round that reads the card on the host cannot be captured: the
+    graph engine must raise by name, not fall back to eager rounds.  Run
+    last, after every measurement, since a failed capture is the one step
+    here that leaves a stream capture aborted."""
+    data, tx, ty = make_federation_data()
+    model = softmax_regression()
+    cfg = FLConfig(rounds=3, batch_size=50, eval_every=3, seed=SEED,
+                   attack=AttackConfig(kind="sign_flip"))
+    fed = Federation.create(model, data, tx, ty, cfg, torch.Generator(
+        device="cuda").manual_seed(100 + SEED))
+    eng = RoundEngine(model, fed, cfg, graph=True)
+    real = eng._body
+
+    def host_read(carry, lr, *a, **kw):
+        new, logs = real(carry, lr, *a, **kw)
+        float(lr)                         # a host read inside the round
+        return new, logs
+    eng._body = host_read
+    try:
+        run_federated_training(model, fed, cfg, inv_sqrt_lr(0.05),
+                               engine=eng)
+    except RuntimeError as exc:
+        if "CUDA graph capture of the round failed" not in str(exc):
+            raise
+        log(f"[engine] a round that reads the card on the host fails its "
+            f"capture by name: {str(exc)[:100]}... [{card}]")
+    else:
+        raise AssertionError("[engine] a capture with a host read passed")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2404,11 +2960,17 @@ def main():
     phase_tab234(card)
     phase_fig8(card)
     phase_fig9(card)
+    # slice 9: the engine, async rounds, telemetry and sweeps
+    phase_engine(card)
+    h_int, async_kw = phase_async(card)
+    phase_telemetry(card, h_int, async_kw)
+    phase_sweep(card)
     phase_card_vs_cpu_s2()
     phase_card_vs_cpu_s3()
     # slice 4's main path: the timed prefills of [serve]
     counts.update(phase_serve(card))
     phase_card_vs_cpu_s4()
+    check_capture_failure(card)
     kernels = []
     for name, meta in KERNEL_META.items():
         r = timings[name]

@@ -32,25 +32,32 @@ DATA_ATTACKS = ("label_flip", "backdoor")
 
 def attack_update(update: torch.Tensor, kind: str, cfg: AttackConfig,
                   generator: Optional[torch.Generator] = None,
-                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  noise: Optional[torch.Tensor] = None, *,
+                  sigma=None, scale=None) -> torch.Tensor:
     """Flat update(s) -> corrupted update(s), elementwise over any shape.
 
     ``gaussian`` returns ``noise * sigma`` where ``noise`` is a standard
     normal array of the update's shape: given explicitly, or drawn from
-    ``generator``."""
+    ``generator``.  ``sigma``/``scale`` override ``cfg``'s magnitudes,
+    as numbers or 0-d fp32 tensors (the round engine's scenario
+    operands); either gives the same bits."""
+    sigma = cfg.sigma if sigma is None else sigma
+    scale = cfg.scale if scale is None else scale
     if kind == "gaussian":
         if noise is None:
             noise = torch.randn(update.shape, generator=generator,
                                 dtype=update.dtype, device=update.device)
-        return noise.to(update.dtype) * cfg.sigma
+        return noise.to(update.dtype) * sigma
     if kind == "sign_flip":
         return -update
     if kind == "same_value":
-        return torch.full_like(update, cfg.sigma)
+        if torch.is_tensor(sigma):
+            return sigma.to(update.dtype).expand_as(update).clone()
+        return torch.full_like(update, sigma)
     if kind in ("backdoor", "scale"):
         # "backdoor" is the model replacement factor of [45] (the data is
         # already poisoned), "scale" the stealthy factor probing C2's band
-        return update * cfg.scale
+        return update * scale
     return update
 
 

@@ -81,6 +81,30 @@ class FederatedData:
                              f"{batch_size}), got {tuple(idx.shape)}")
         return self._gather(idx)
 
+    def segment_minibatches(self, rounds: int, batch_size: int,
+                            generator: Optional[torch.Generator] = None,
+                            idx: Optional[torch.Tensor] = None):
+        """Minibatch stacks for one segment of ``rounds`` rounds of the
+        round engine: (T, N, m, ...), (T, N, m).  Row t is drawn exactly as
+        the t-th of ``rounds`` successive :meth:`minibatch` calls on
+        ``generator`` would draw it, so a segment's stack equals the inline
+        draws bitwise.  ``idx`` (T, N, m) gives the draws explicitly."""
+        if idx is None:
+            idx = torch.stack([
+                torch.randint(0, self.per_client,
+                              (self.n_clients, batch_size),
+                              generator=generator,
+                              device=_draw_device(generator, self.device))
+                for _ in range(rounds)])
+        elif tuple(idx.shape) != (rounds, self.n_clients, batch_size):
+            raise ValueError(f"segment idx must be ({rounds}, "
+                             f"{self.n_clients}, {batch_size}), got "
+                             f"{tuple(idx.shape)}")
+        rows = torch.arange(self.n_clients, device=self.device)[None, :,
+                                                                None]
+        idx = idx.to(self.device)
+        return self.x[rows, idx], self.y[rows, idx]
+
     def sample_size(self, frac: float) -> int:
         """The enclave sample size s = frac * n_j (at least 1)."""
         return max(1, int(self.per_client * frac))

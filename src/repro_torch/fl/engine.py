@@ -1,0 +1,423 @@
+"""The round engine: a whole federated run with one host sync, optionally
+replayed from a CUDA graph.
+
+The per-round loop (``run_federated_training(use_engine=False)``) reads
+every eval point's metrics on the host, which waits on the card each
+time.  The engine runs the same round body (``fl/simulator.make_round_body``)
+round after round without reading anything back: the learning rates are
+one (R,) device vector, each eval point's metrics are written into
+preallocated (evals, ...) device buffers, the per-round telemetry block
+into (rounds,) buffers, and the caller fetches them all with one
+``simulator.host_sync``.  The engine's history and params equal the
+per-round loop's bit for bit.
+
+``graph=True`` (off by default) captures one round in a
+``torch.cuda.CUDAGraph``: the carry, the error-feedback residuals, the
+async slab, the learning-rate vector with a device round counter, the
+scenario operands and the telemetry buffers are static tensors, and the
+run's generator is registered with the graph, so each replay draws the
+numbers an eager round would.  A run copies its carry, scenario, lrs and
+generator state into the static tensors and replays the graph once per
+round; eval points run eagerly on the static carry between replays.  One
+capture serves every run of the engine whose shapes match (a sweep's
+structural group).  The graph needs a CUDA device, and a capture that
+fails raises: nothing falls back to eager rounds.
+
+The reference's mesh paths (``mesh=``, a model axis, the blocked (ms, L)
+layout and ``sweep_put``) are multi-device work and are refused by name
+(ROADMAP queue 1, item 4: S6).
+"""
+from __future__ import annotations
+
+import contextlib
+import logging
+from typing import Optional
+
+import torch
+
+from . import telemetry
+from .faults import init_async_state
+from .metrics import make_eval_fn
+from .simulator import make_round_body, make_scenario
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["RoundEngine", "make_round_body", "make_scenario",
+           "trace_counter", "trace_counts", "TRACE_COUNTS"]
+
+
+# ----------------------------------------------------------------------
+# Build and capture counters
+# ----------------------------------------------------------------------
+
+# Counted, not inferred: ``build`` goes up once per RoundEngine (one round
+# body built), ``capture`` once per CUDA-graph capture of a round.  The
+# sweep reads them to show one build (one capture) per structural group.
+TRACE_COUNTS = {"build": 0, "capture": 0}
+
+
+def trace_counts():
+    """A snapshot of the engine's build and capture counters."""
+    return dict(TRACE_COUNTS)
+
+
+class TraceDelta:
+    """Live view of the counters since a :func:`trace_counter` entry:
+    ``delta["build"]`` reads the current delta, inside or after the
+    ``with`` block."""
+
+    def __init__(self, start):
+        self._start = start
+
+    def __getitem__(self, kind):
+        return TRACE_COUNTS[kind] - self._start.get(kind, 0)
+
+    def snapshot(self):
+        return {k: self[k] for k in TRACE_COUNTS}
+
+    def total(self):
+        return sum(self.snapshot().values())
+
+
+@contextlib.contextmanager
+def trace_counter():
+    """``with trace_counter() as tc:`` yields a :class:`TraceDelta`
+    relative to the entry; the global counters keep counting."""
+    yield TraceDelta(dict(TRACE_COUNTS))
+
+
+def _refuse_mesh(mesh, model_shards):
+    if mesh is not None:
+        raise NotImplementedError(
+            "RoundEngine(mesh=...): the port runs on one device; the "
+            "client-axis mesh, the pod tiers and sweep_put are multi-device "
+            "work (ROADMAP queue 1, item 4: S6)")
+    if model_shards != 1:
+        raise NotImplementedError(
+            f"RoundEngine(model_shards={model_shards}): model sharding and "
+            f"the blocked (ms, L) update layout are multi-device work "
+            f"(ROADMAP queue 1, item 4: S6)")
+
+
+def _copy_tree(dst, src):
+    """Copy ``src``'s tensors into ``dst``'s, leaf by leaf (same
+    structure); a leaf that is the same tensor is left alone."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_tree(dst[k], src[k])
+    elif isinstance(dst, (tuple, list)):
+        for a, b in zip(dst, src):
+            _copy_tree(a, b)
+    elif dst is not None and dst is not src:
+        dst.copy_(src)
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return None if tree is None else tree.clone()
+
+
+class _Buffers:
+    """Preallocated device buffers with a leading (rows,) axis, one per key,
+    allocated on first write from the value's shape and dtype."""
+
+    def __init__(self, rows: int):
+        self.rows, self.buf = rows, {}
+
+    def put(self, row: int, values: dict) -> None:
+        for k, v in values.items():
+            b = self.buf.get(k)
+            if b is None:
+                b = self.buf[k] = v.new_empty((self.rows,) + tuple(v.shape))
+            b[row].copy_(v)
+
+
+class RoundEngine:
+    """Federated rounds with one host sync per run.
+
+    ``run_segment(carry, generator, lrs)`` runs ``len(lrs)`` rounds and
+    returns ``(carry, last_logs)``, the final round's logs being what an
+    eval point reads.  ``run_training(carry, generator, lrs)`` runs a whole
+    run: every ``eval_every``-th round (and the last) evaluates into device
+    buffers, and it returns ``(params, generator, metrics, eval_rounds)``,
+    ``metrics`` a dict of (evals, ...) device tensors (with the reserved
+    key ``"_tel"``, the (rounds,) telemetry block, when ``cfg.telemetry``
+    is on) that the caller fetches with one host sync.
+    ``run_training_sweep`` runs a structural group of cells on this one
+    engine (``fl/sweep.py``).  The generator advances in place, exactly as
+    the per-round loop advances it.
+
+    ``batch_mode``: ``"inline"`` (the default) draws each round's
+    minibatches in the round; ``"segment"`` draws a segment's stack first
+    (``FederatedData.segment_minibatches``).  With one stateful generator
+    the two agree bitwise only when a round draws nothing but its
+    minibatches, so ``"segment"`` refuses a config whose rounds draw more
+    (participation < 1, gaussian noise, fault rows, resampling).
+
+    The eval cadence and the client blocks are ``cfg.eval_every`` and
+    ``cfg.client_chunk``; a caller that needs others passes
+    ``dataclasses.replace(cfg, ...)``.  The port has no buffer donation:
+    every round allocates its new carry and leaves the caller's tensors
+    untouched, and ``FLConfig(donate=True)`` is refused by name.  The graph
+    updates its own static carry in place.
+
+    ``graph=True`` replays a captured round (module docstring).  The
+    counters show the capture: :data:`TRACE_COUNTS` ``["capture"]``, and
+    ``captured_launches`` holds the kernel launches made while capturing,
+    which every replay repeats (``replays`` counts them).
+    """
+
+    def __init__(self, model, fed, cfg, *, batch_mode: Optional[str] = None,
+                 mesh=None, model_shards: int = 1, graph: bool = False):
+        _refuse_mesh(mesh, model_shards)
+        self.model, self.fed, self.cfg = model, fed, cfg
+        self.device = fed.device
+        self.eval_every = cfg.eval_every
+        if self.eval_every < 1:
+            raise ValueError(f"eval_every must be >= 1, got "
+                             f"{self.eval_every}")
+        batch_mode = "inline" if batch_mode is None else batch_mode
+        if batch_mode not in ("inline", "segment"):
+            raise ValueError(f"unknown batch_mode {batch_mode!r}")
+        if batch_mode == "segment" and _draws_beyond_batches(cfg):
+            raise ValueError(
+                f"batch_mode='segment' draws a segment's minibatches ahead "
+                f"of its rounds from the run's one generator, which equals "
+                f"the inline draws only when a round draws nothing else; "
+                f"this config also draws {_draws_beyond_batches(cfg)}")
+        self.batch_mode = batch_mode
+        if graph and self.device.type != "cuda":
+            raise ValueError(
+                f"RoundEngine(graph=True) captures a CUDA graph and needs a "
+                f"CUDA device; the federation lives on {self.device}")
+        self.graph = graph
+        TRACE_COUNTS["build"] += 1
+        self._body = make_round_body(model, fed, cfg)
+        self.streaming = self._body.streaming
+        self.streaming_fallback = self._body.streaming_fallback
+        self.lossy = self._body.lossy
+        self.async_mode = self._body.async_mode
+        self.telemetry = bool(cfg.telemetry)
+        self._tel_fn = telemetry.make_round_telemetry_fn(cfg) \
+            if self.telemetry else None
+        self.default_scenario = make_scenario(cfg, fed)
+        self._eval_fn = make_eval_fn(model, fed, cfg)
+        self._g = None                        # the captured round, if any
+        self.captured_launches = None
+        self.replays = 0
+
+    # --- the carry ------------------------------------------------------
+    def eval_metrics(self, params, logs):
+        """The device metric dict of one eval point."""
+        return self._eval_fn(params, logs)
+
+    def init_carry(self, params):
+        """The round carry for ``params``: bare params; ``(params,
+        zeros(N, d))`` under a lossy codec; ``(params, async state)`` in
+        async rounds."""
+        d = sum(v.numel() for v in params.values())
+        if self.lossy:
+            return params, torch.zeros((self.cfg.n_clients, d),
+                                       dtype=torch.float32,
+                                       device=self.device)
+        if self.async_mode:
+            return params, init_async_state(self.cfg, (d,), self.device)
+        return params
+
+    def carry_params(self, carry):
+        """The params inside a carry."""
+        return carry[0] if (self.lossy or self.async_mode) else carry
+
+    def _ensure_carry(self, carry):
+        """Bare params where a carry is expected start a fresh run."""
+        if (self.lossy or self.async_mode) and isinstance(carry, dict):
+            return self.init_carry(carry)
+        return carry
+
+    # --- eager rounds ---------------------------------------------------
+    def _round(self, carry, lr, generator, scen, draws, i, batch):
+        kw = {} if draws is None else {k: v[i] for k, v in draws.items()}
+        return self._body(carry, lr, generator, scen=scen, batch=batch,
+                          **kw)
+
+    def _segments(self, R):
+        """(start, length) of each eval segment of an R-round run."""
+        T = self.eval_every
+        return [(s, min(T, R - s)) for s in range(0, R, T)]
+
+    def _segment_batches(self, n, generator, draws, start):
+        if self.batch_mode != "segment":
+            return None
+        idx = None if draws is None or "batch_idx" not in draws \
+            else draws["batch_idx"][start:start + n]
+        return self.fed.data.segment_minibatches(
+            n, self.cfg.local_steps * self.cfg.batch_size, generator,
+            idx=idx)
+
+    @torch.no_grad()
+    def run_segment(self, carry, generator, lrs, scen=None, draws=None):
+        """Run ``len(lrs)`` rounds eagerly; returns ``(carry, last_logs)``.
+        ``draws`` maps body draw names (``batch_idx``, ``sel``, ``noise``,
+        ``fault_rows``, ...) to per-round stacks, indexed from the
+        segment's first round."""
+        if scen is None:
+            scen = self.default_scenario
+        carry = self._ensure_carry(carry)
+        n = int(lrs.shape[0])
+        stack = self._segment_batches(n, generator, draws, 0)
+        logs = None
+        for t in range(n):
+            batch = None if stack is None else (stack[0][t], stack[1][t])
+            carry, logs = self._round(carry, lrs[t], generator, scen,
+                                      draws, t, batch)
+        return carry, logs
+
+    @torch.no_grad()
+    def run_training(self, carry, generator, lrs, scen=None, draws=None):
+        """Run ``len(lrs)`` rounds with the metrics kept on the device.
+
+        Returns ``(params, generator, metrics, eval_rounds)``: ``metrics``
+        maps each eval key to an (evals, ...) device tensor (plus
+        ``"_tel"`` with telemetry on), ``eval_rounds`` the host list of the
+        rounds each row was evaluated at.  Nothing is read on the host."""
+        if scen is None:
+            scen = self.default_scenario
+        R = int(lrs.shape[0])
+        segs = self._segments(R)
+        eval_rounds = [s + n for s, n in segs]
+        if self.graph:
+            if draws is not None:
+                raise ValueError("RoundEngine(graph=True) replays its own "
+                                 "draws; injected draws need graph=False")
+            params, metrics, tel = self._run_graph(carry, generator, lrs,
+                                                   scen, len(segs))
+        else:
+            carry = self._ensure_carry(carry)
+            bufs, tbufs = _Buffers(len(segs)), _Buffers(R)
+            for e, (start, n) in enumerate(segs):
+                stack = self._segment_batches(n, generator, draws, start)
+                for t in range(n):
+                    i = start + t
+                    batch = None if stack is None \
+                        else (stack[0][t], stack[1][t])
+                    carry, logs = self._round(carry, lrs[i], generator,
+                                              scen, draws, i, batch)
+                    if self._tel_fn is not None:
+                        tbufs.put(i, self._tel_fn(logs))
+                bufs.put(e, self._eval_fn(self.carry_params(carry), logs))
+            params, metrics, tel = self.carry_params(carry), bufs.buf, \
+                tbufs.buf
+        if self.telemetry and tel:
+            metrics = dict(metrics, _tel=tel)
+        return params, generator, metrics, eval_rounds
+
+    # --- the sweep axis -------------------------------------------------
+    def run_training_sweep(self, cells):
+        """Run a structural group of cells on this engine, one after the
+        other; ``cells`` yields ``(params, generator, lrs, scen)`` per cell.
+        Returns ``(params_list, metrics_list, eval_rounds)``: each cell's
+        final params and device metric dict (fetch them together with one
+        host sync).  A cell equals its solo ``run_training`` bitwise."""
+        params_out, metrics_out, eval_rounds = [], [], None
+        for params, generator, lrs, scen in cells:
+            p, _, m, eval_rounds = self.run_training(params, generator, lrs,
+                                                     scen)
+            params_out.append(p)
+            metrics_out.append(m)
+        return params_out, metrics_out, eval_rounds
+
+    # --- the CUDA graph -------------------------------------------------
+    def _capture(self, carry, generator, scen, rounds):
+        """Capture one round of the static carry into a CUDA graph.  A
+        warm-up round on copies of the carry (the generator's state saved
+        and restored around it) loads every kernel and sizes the buffers
+        first; the capture itself runs nothing."""
+        from ..kernels import ops as kops
+        dev = self.device
+        g = {"gen": torch.Generator(device=dev),
+             "carry": _clone_tree(self._ensure_carry(carry)),
+             "scen": _clone_tree(scen),
+             "lrs": torch.zeros((rounds,), dtype=torch.float32, device=dev),
+             "ctr": torch.zeros((1,), dtype=torch.int64, device=dev),
+             "rounds": rounds}
+        g["gen"].set_state(generator.get_state())
+        state = g["gen"].get_state()
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            lr0 = g["lrs"].index_select(0, g["ctr"]).squeeze(0)
+            _, logs = self._body(_clone_tree(g["carry"]), lr0, g["gen"],
+                                 scen=g["scen"])
+            tel = self._tel_fn(logs) if self._tel_fn is not None else {}
+        torch.cuda.current_stream(dev).wait_stream(side)
+        g["gen"].set_state(state)
+        g["tel"] = {k: torch.zeros((rounds,) + tuple(v.shape), dtype=v.dtype,
+                                   device=dev) for k, v in tel.items()}
+
+        def step():
+            lr = g["lrs"].index_select(0, g["ctr"]).squeeze(0)
+            new, logs = self._body(g["carry"], lr, g["gen"], scen=g["scen"])
+            _copy_tree(g["carry"], new)
+            if self._tel_fn is not None:
+                for k, v in self._tel_fn(logs).items():
+                    g["tel"][k].index_copy_(0, g["ctr"], v.reshape(1))
+            g["ctr"].add_(1)
+            return logs
+
+        graph = torch.cuda.CUDAGraph()
+        before = kops.launch_counts()
+        try:
+            graph.register_generator_state(g["gen"])
+            with torch.cuda.graph(graph):
+                g["logs"] = step()
+        except Exception as exc:
+            raise RuntimeError(
+                f"CUDA graph capture of the round failed ({type(exc).__name__}: "
+                f"{exc}); run with graph=False for eager rounds") from exc
+        after = kops.launch_counts()
+        self.captured_launches = {k: after[k] - before[k] for k in after}
+        g["graph"] = graph
+        TRACE_COUNTS["capture"] += 1
+        telemetry.event("capture", rounds=rounds, **{
+            k: v for k, v in self.captured_launches.items() if v})
+        self._g = g
+
+    def _run_graph(self, carry, generator, lrs, scen, n_evals):
+        R = int(lrs.shape[0])
+        if self._g is None or self._g["rounds"] < R:
+            self._capture(carry, generator, scen, max(R, self.cfg.rounds))
+        g = self._g
+        carry = self._ensure_carry(carry)
+        _copy_tree(g["carry"], carry)
+        _copy_tree(g["scen"], scen)
+        g["lrs"][:R].copy_(lrs)
+        g["ctr"].zero_()
+        g["gen"].set_state(generator.get_state())
+        bufs = _Buffers(n_evals)
+        for e, (start, n) in enumerate(self._segments(R)):
+            for _ in range(n):
+                g["graph"].replay()
+                self.replays += 1
+            bufs.put(e, self._eval_fn(self.carry_params(g["carry"]),
+                                      g["logs"]))
+        generator.set_state(g["gen"].get_state())
+        params = {k: v.clone()
+                  for k, v in self.carry_params(g["carry"]).items()}
+        tel = {k: v[:R].clone() for k, v in g["tel"].items()}
+        return params, bufs.buf, tel
+
+
+def _draws_beyond_batches(cfg) -> Optional[str]:
+    """What a round draws besides its minibatches, or None."""
+    if cfg.n_selected < cfg.n_clients:
+        return "the participating subset (participation < 1)"
+    if cfg.attack.kind == "gaussian":
+        return "gaussian attack noise"
+    if cfg.fault.draws:
+        return "fault rows"
+    if cfg.aggregator == "resampling":
+        return "the resampling rule's groups"
+    return None

@@ -16,6 +16,8 @@ import torch
 
 from ..core.attacks import AttackConfig
 from .compression import get_codec, wire_bytes
+from .server import get_aggregator
+from .streaming import get_streaming
 
 
 def _ratio(num: torch.Tensor, den: torch.Tensor, empty: float) -> torch.Tensor:
@@ -40,12 +42,24 @@ def accuracy(model, params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return masked_accuracy(model, params, x, y)
 
 
-def mask_rates(mask: torch.Tensor, byz: torch.Tensor):
+def mask_rates(mask: torch.Tensor, byz: torch.Tensor,
+               valid: Optional[torch.Tensor] = None):
     """Byzantine-detection TPR/FPR from a round's keep-mask (True = kept;
     flagged means not kept).  TPR is 1.0 with no Byzantine client, FPR
-    0.0 with no benign client.  Device scalars."""
+    0.0 with no benign client.  Device scalars.
+
+    ``valid`` (async rounds) restricts the accounting to the rows that
+    took part: the live cohort and the landed stale updates.  A Byzantine
+    straggler is scored at its landing round; empty buffer slots and
+    dropped clients count toward neither rate."""
     flagged = ~mask.to(torch.bool)
     byz = byz.to(torch.bool)
+    if valid is not None:
+        v = valid.to(torch.bool)
+        flagged = flagged & v
+        tpr = _ratio((flagged & byz).sum(), (byz & v).sum(), 1.0)
+        fpr = _ratio((flagged & ~byz).sum(), (~byz & v).sum(), 0.0)
+        return tpr, fpr
     tpr = _ratio((flagged & byz).sum(), byz.sum(), 1.0)
     fpr = _ratio((flagged & ~byz).sum(), (~byz).sum(), 0.0)
     return tpr, fpr
@@ -128,7 +142,8 @@ def make_eval_fn(model, fed, cfg):
             m["backdoor_acc"] = backdoor_accuracy_on(model, params, bd)
         if "mask" in logs:
             m["mask_tpr"], m["mask_fpr"] = mask_rates(logs["mask"],
-                                                      logs["byz"])
+                                                      logs["byz"],
+                                                      logs.get("cand"))
         if "c1c2" in logs:
             m["c1c2"] = logs["c1c2"]
         return m
@@ -156,3 +171,24 @@ def comm_stats(cfg, d: int):
         "dense_uplink_bytes_per_round": int(c * dense),
         "uplink_reduction": float(dense / per_client),
     }
+
+
+def round_telemetry_bytes(cfg) -> int:
+    """Device bytes one round's telemetry block adds
+    (``fl/telemetry.make_round_telemetry_fn``): int32 counts and fp32
+    norm summaries, independent of N.  A run of R rounds drains
+    ``R · round_telemetry_bytes`` at its one host sync.  Mirrors the keys
+    of the telemetry block field for field."""
+    entry = get_aggregator(cfg.aggregator)
+    fields = 0
+    if cfg.aggregator == "oracle" or entry.needs_guides:
+        fields += 2                           # kept, tagged (int32)
+    if entry.needs_guides:
+        fields += 2                           # c1_pass, c2_pass (int32)
+        fields += 4                           # upd/guide norm mean+max (f32)
+    if (cfg.streaming and get_streaming(cfg.aggregator) is not None
+            and get_codec(cfg.compression).lossless):
+        fields += 1                           # nonfinite (int32)
+    if cfg.async_rounds:
+        fields += 4                           # cohort, stale_* (int32)
+    return fields * 4

@@ -234,6 +234,36 @@ class SecureServer:
                               clients=len(ids))
         return self._guide_cache[1], self._guide_cache[2]
 
+    # --- audit: per-round decisions, committed after the run's sync ---
+    def record_round_tags(self, round_index: int, **counts) -> None:
+        """Commit one round's tag decision counts (kept/tagged clients,
+        C1/C2 pass counts) to the audit chain.  The counts come from the
+        on-device telemetry block after the run's one host sync."""
+        self.audit.append(
+            "round_tags", round=int(round_index),
+            **{k: (v.item() if hasattr(v, "item") else v)
+               for k, v in counts.items()})
+
+    def record_cohort_resample(self, round_index: int, cohort: int,
+                               **extra) -> None:
+        """Commit one round's live cohort size (participants after
+        dropout faults) to the audit chain."""
+        self.audit.append("cohort_resample", round=int(round_index),
+                          cohort=int(cohort), **extra)
+
+    def record_stale(self, round_index: int, decision: str,
+                     count: int, **extra) -> None:
+        """Commit one round's staleness decision count: ``buffered`` (a
+        straggler's update entered the pending slab), ``folded`` (a
+        buffered update landed and went through Eq. 6) or ``expired``
+        (dropped: no free slot, no buffer, or over the staleness cap)."""
+        if decision not in ("buffered", "folded", "expired"):
+            raise ValueError(
+                f"unknown staleness decision {decision!r}; expected "
+                f"'buffered', 'folded' or 'expired'")
+        self.audit.append(f"stale_{decision}", round=int(round_index),
+                          count=int(count), **extra)
+
     # --- Step 3: guiding updates --------------------------------------
     def compute_guides(self, params, grad_fn, lr, E: int = 1,
                        select: Optional[torch.Tensor] = None,

@@ -17,8 +17,18 @@ lossy ``compression`` codec (``fl/compression.py``) every selected
 client sends ``enc(u + resid)`` and keeps the error in a per-client
 residual (error feedback); the round then carries ``(params, resid)``.
 
-Nothing inside a round waits on the card: the metrics leave the device
-only at eval points.
+Training runs through the round engine (``fl/engine.RoundEngine``) by
+default: the whole run is dispatched without a host read, every eval
+point's metrics accumulate in device buffers, and the host syncs once, in
+:func:`host_sync`, at the end.  ``RoundEngine(graph=True)`` captures one
+round in a CUDA graph and replays it.  ``use_engine=False`` keeps the
+per-round loop, which syncs at every eval point; the engine equals it
+bitwise.
+
+Async rounds (``FLConfig.fault``, ``cohort_participation``,
+``staleness_*``; ``fl/faults.py``) draw a per-round cohort, drop, delay or
+corrupt clients, and land stale updates from a bounded buffer in the
+carry through the streaming fold's ``extra_state``.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import logging
 import math
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..core.aggregators import flatten_updates
@@ -35,8 +46,12 @@ from ..core.attacks import (UPDATE_ATTACKS, AttackConfig, attack_update,
 from ..core.diversefl import DiverseFLConfig
 from ..data.pipeline import FederatedData
 from ..device import DeviceLike, resolve_device
-from .chunking import chunked_vmap
+from . import telemetry
+from .chunking import chunked_vmap, tree_leaves, tree_map
 from .compression import available_codecs, encode_with_feedback, get_codec
+from .faults import (FaultConfig, corrupt_updates, draw_faults,
+                     init_async_state, make_cohort_chain,
+                     validate_cohort_chain)
 from .metrics import (BackdoorEval, comm_stats, make_backdoor_eval,
                       make_eval_fn)
 from .server import AggregationContext, SecureServer, get_aggregator
@@ -73,6 +88,24 @@ class FLConfig:
     compression: str = "f32"             # client→server codec: "f32" is
     #                                      lossless, "bf16"/"int8" carry
     #                                      error feedback
+    donate: Optional[bool] = None        # the reference's buffer donation;
+    #                                      the port has none, so True is
+    #                                      refused and None/False are inert
+    telemetry: bool = False              # per-round on-device telemetry
+    #                                      block, drained at the one host
+    #                                      sync; changes no history bit
+    fault: FaultConfig = FaultConfig()   # device-malfunction model
+    #                                      (fl/faults.py), drawn per round
+    cohort_participation: Optional[float] = None
+    #                                      a fresh ceil(p·N) cohort every
+    #                                      round from the (R, N) cohort
+    #                                      chain; None = off
+    staleness_buffer: int = 0            # slots of the pending slab in the
+    #                                      carry (O(buffer·D)); 0 = late
+    #                                      updates expire
+    staleness_cap: int = 0               # updates older than this expire
+    #                                      instead of buffering (0 = none)
+    staleness_discount: float = 1.0      # landing weight per round late
     eval_every: int = 10
     seed: int = 0
 
@@ -109,11 +142,75 @@ class FLConfig:
                     f"{k} (= ceil(n_selected {self.n_selected} / "
                     f"client_chunk {self.client_chunk})); pick a "
                     f"client_chunk so the blocks divide evenly across pods")
+        if self.donate:
+            raise ValueError(
+                "donate=True: the port has no buffer donation; every round "
+                "allocates its new carry and leaves the caller's tensors "
+                "untouched.  Use donate=None or False")
         if self.compression not in available_codecs():
             raise ValueError(
                 f"compression={self.compression!r} is not a registered "
                 f"codec; available: {available_codecs()} "
                 f"(fl/compression.py)")
+        # --- async knobs ------------------------------------------------
+        if not isinstance(self.fault, FaultConfig):
+            raise ValueError(
+                f"fault must be a fl.faults.FaultConfig, got "
+                f"{type(self.fault).__name__}")
+        if self.cohort_participation is not None:
+            p = self.cohort_participation
+            if isinstance(p, bool) or not isinstance(p, (int, float)) \
+                    or not (0.0 < float(p) <= 1.0):
+                raise ValueError(
+                    f"cohort_participation must be None (static cohort) or "
+                    f"a fraction in (0, 1]: a cohort of zero clients every "
+                    f"round is degenerate (0/0 weighted mean); got {p!r}")
+        for name in ("staleness_buffer", "staleness_cap"):
+            v = getattr(self, name)
+            if isinstance(v, bool) or not isinstance(v, int) or v < 0:
+                raise ValueError(
+                    f"{name} must be a non-negative int (rounds/slots), "
+                    f"got {v!r}")
+        if not (0.0 < float(self.staleness_discount) <= 1.0):
+            raise ValueError(
+                f"staleness_discount must be in (0, 1] (landing weight "
+                f"multiplier per round of staleness), got "
+                f"{self.staleness_discount!r}")
+        if self.async_rounds:
+            if self.participation != 1.0:
+                raise ValueError(
+                    f"async rounds (fault/cohort/staleness knobs) replace "
+                    f"the static participation selection with the per-round "
+                    f"cohort chain: set participation=1.0 and use "
+                    f"cohort_participation={self.participation} for "
+                    f"resampled partial participation")
+            if not self.streaming or get_streaming(self.aggregator) is None:
+                why = ("streaming=False" if not self.streaming else
+                       f"aggregator {self.aggregator!r} has no streaming "
+                       f"rule ({fallback_reason(self.aggregator)})")
+                raise ValueError(
+                    f"async rounds fold per-round cohorts, faulty clients "
+                    f"and landed stale updates through the streaming "
+                    f"AggState monoid's weight channel, but {why}: the "
+                    f"dense path has no per-client weight channel to carry "
+                    f"the cohort/staleness masks")
+            if not get_codec(self.compression).lossless:
+                raise ValueError(
+                    f"async rounds cannot compose with the lossy "
+                    f"compression={self.compression!r}: error-feedback "
+                    f"residuals assume every client transmits every round, "
+                    f"but cohort resampling and dropout make transmission "
+                    f"intermittent, so the residual would go stale.  Use "
+                    f"compression='f32'")
+
+    @property
+    def async_rounds(self) -> bool:
+        """True when any async knob engages the per-round cohort, fault or
+        staleness machinery; False leaves the round exactly the
+        synchronous one."""
+        return (self.fault.kind != "none"
+                or self.cohort_participation is not None
+                or self.staleness_buffer > 0)
 
     @property
     def n_selected(self) -> int:
@@ -194,27 +291,84 @@ class Federation:
                    root_y=flat_y[root_idx])
 
 
+# the cohort chain's generator is seeded apart from the training draws
+# (both start from cfg.seed), as the reference folds its cohort key away
+# from the training key
+COHORT_SEED_OFFSET = 0x0C0407
+
+
+def make_scenario(cfg: FLConfig, fed: Optional["Federation"] = None,
+                  byz_mask=None, cohort=None, device: DeviceLike = None
+                  ) -> Dict[str, torch.Tensor]:
+    """The round's per-run operands as device tensors: the attack
+    magnitudes ``sigma``/``scale`` (0-d fp32) and the (N,) Byzantine mask
+    ``byz``, everything about a run that changes its numbers and not its
+    structure, so one engine (and one CUDA graph) serves every scenario.
+
+    ``byz_mask`` overrides; else ``fed.byz_mask``; else the deterministic
+    ``make_byzantine_mask(n_clients, f)``.  With
+    ``cfg.cohort_participation`` set the scenario also carries ``cohort``,
+    the (R, N) cohort chain drawn from a generator seeded with
+    ``cfg.seed + COHORT_SEED_OFFSET``; an explicit ``cohort`` is
+    validated (``DegenerateCohortError``) and used instead.  Built from
+    ``fed`` it copies nothing from the host."""
+    dev = fed.device if fed is not None and device is None \
+        else resolve_device(device)
+    if byz_mask is not None:
+        byz = torch.as_tensor(byz_mask, dtype=torch.bool).to(dev)
+    elif fed is not None:
+        byz = fed.byz_mask.to(dev)
+    else:
+        byz = make_byzantine_mask(cfg.n_clients, cfg.f, device=dev)
+    scen = {"sigma": torch.full((), cfg.attack.sigma, dtype=torch.float32,
+                                device=dev),
+            "scale": torch.full((), cfg.attack.scale, dtype=torch.float32,
+                                device=dev),
+            "byz": byz}
+    if cohort is not None:
+        validate_cohort_chain(cohort, cfg.n_clients, cfg.rounds)
+        scen["cohort"] = torch.as_tensor(cohort, dtype=torch.bool).to(dev)
+    elif cfg.cohort_participation is not None:
+        gen = torch.Generator(device=dev).manual_seed(
+            cfg.seed + COHORT_SEED_OFFSET)
+        scen["cohort"] = make_cohort_chain(cfg.n_clients, cfg.rounds,
+                                           cfg.cohort_participation, gen)
+    return scen
+
+
 def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     """Build ``body(carry, lr, generator=None, *, batch_idx=None, sel=None,
-    noise=None, resample_ids=None) -> (new_carry, logs)``: one round of
-    Steps 2-5.  The carry is the params, or ``(params, resid)`` under a
-    lossy codec, ``resid`` the (N, D) fp32 error-feedback residuals;
-    ``resid`` is updated in place (a copy per round would double the
-    largest tensor of the run) and returned.
+    noise=None, resample_ids=None, fault_rows=None, slab_noise=None,
+    scen=None, batch=None) -> (new_carry, logs)``: one round of Steps 2-5.  The carry
+    is the params; ``(params, resid)`` under a lossy codec, ``resid`` the
+    (N, D) fp32 error-feedback residuals, updated in place (a copy per
+    round would double the largest tensor of the run) and returned; or
+    ``(params, astate)`` in async rounds, ``astate`` the
+    ``fl/faults.init_async_state`` dict.  ``lr`` is a number or a 0-d fp32
+    tensor (the same bits).  ``scen`` holds the run's operands
+    (:func:`make_scenario`; default: this federation's).
 
     The round's random draws come from ``generator`` in this order: the
-    (N, E·m) minibatch indices, the participating subset (only when
-    participation < 1), the gaussian attack noise and, last, the
-    resampling rule's groups.  The noise is drawn one ``client_chunk``
-    block of rows at a time (one (C, D) draw without chunking), on the
-    dense and the streaming path alike, so both draw the same numbers.
-    Each draw can be given explicitly instead: ``batch_idx`` (N, E·m),
-    ``sel`` (C,) client ids, ``noise`` (C, D) standard normal,
-    ``resample_ids`` (C, s_R) client ids.
+    (N, E·m) minibatch indices; the participating subset (only when
+    participation < 1); the fault rows (only in async rounds with a fault
+    rate); the gaussian attack noise; the straggler slab's gaussian noise
+    (only with stragglers buffered); and, last, the resampling rule's
+    groups.  The noise is drawn one ``client_chunk`` block of rows at a
+    time (one (C, D) draw without chunking), on the dense and the
+    streaming path alike, so both draw the same numbers.  The cohort chain
+    is not a round draw: it comes with the scenario.  Each draw can be
+    given explicitly instead: ``batch_idx`` (N, E·m) (or the gathered
+    ``batch`` stacks (N, E·m, ...), (N, E·m)), ``sel`` (C,) client
+    ids, ``fault_rows`` (N,) bool, ``noise`` (C, D) standard normal,
+    ``slab_noise`` (B, D), ``resample_ids`` (C, s_R) client ids.
+
+    No step of the round reads a device value on the host, so a run
+    dispatches without waiting on the card and one round can be captured
+    in a CUDA graph.
 
     The body exposes ``streaming`` (the rule streams), ``streaming_fallback``
-    (why it does not, when streaming was asked for), ``lossy`` and
-    ``codec``."""
+    (why it does not, when streaming was asked for), ``lossy``, ``codec``
+    and ``async_mode``."""
     E, m = cfg.local_steps, cfg.batch_size
     acfg = cfg.attack
     N, C = cfg.n_clients, cfg.n_selected
@@ -225,7 +379,22 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     lossy = not codec.lossless
     wire = codec if lossy else None        # what the server side decodes
     update_attack = acfg.kind in UPDATE_ATTACKS or acfg.kind == "backdoor"
+    gaussian = acfg.kind == "gaussian"
     dev = fed.device
+    # async rounds: everything below is gated on these constants, so a
+    # synchronous config runs exactly the synchronous round
+    async_mode = cfg.async_rounds
+    fcfg = cfg.fault
+    straggler = async_mode and fcfg.kind == "straggler"
+    B = cfg.staleness_buffer if async_mode else 0
+    cap = cfg.staleness_cap
+    # stragglers expire wholesale when there is nowhere to land them or
+    # the cap forbids their age
+    expire_all = straggler and (B == 0 or (cap > 0 and fcfg.delay > cap))
+    # every buffered update lands at age == delay: one discount factor
+    discount_w = float(cfg.staleness_discount) ** fcfg.delay \
+        if async_mode else 1.0
+    default_scen = make_scenario(cfg, fed)
     stream_entry, streaming_fallback = None, None
     if cfg.streaming:
         stream_entry = get_streaming(cfg.aggregator)
@@ -235,6 +404,8 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 "FLConfig.streaming=True but aggregator %r cannot stream "
                 "(%s); falling back to the dense (C, D) aggregation path",
                 cfg.aggregator, streaming_fallback)
+            telemetry.event("streaming_fallback", aggregator=cfg.aggregator,
+                            reason=streaming_fallback)
     if entry.needs_guides:
         fed.server.guide_batches()           # unseal once, before round 1
 
@@ -253,19 +424,31 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
             theta = {k: theta[k] - lr * g[k] for k in theta}
         return {k: start[k] - theta[k] for k in start}
 
-    def apply_update_attacks(U, byz_rows, noise_rows):
-        """One per-row attack definition for the dense (C, D) matrix and
-        the streaming (chunk, D) blocks."""
-        U_att = attack_update(U, acfg.kind, acfg, noise=noise_rows)
+    def apply_update_attacks(U, byz_rows, noise_rows, scen):
+        """One per-row attack definition for the dense (C, D) matrix, the
+        streaming (chunk, D) blocks and the straggler slab; the
+        magnitudes come from the scenario."""
+        U_att = attack_update(U, acfg.kind, acfg, noise=noise_rows,
+                              sigma=scen["sigma"], scale=scen["scale"])
         return torch.where(byz_rows[:, None], U_att, U)
 
     def draw_noise(generator, rows, d):
         return torch.randn((rows, d), generator=generator, device=dev)
 
     def body(carry, lr, generator=None, *, batch_idx=None, sel=None,
-             noise=None, resample_ids=None):
-        params, resid = carry if lossy else (carry, None)
-        xb, yb = fed.data.minibatch(E * m, generator, idx=batch_idx)
+             noise=None, resample_ids=None, fault_rows=None,
+             slab_noise=None, scen=None, batch=None):
+        astate = resid = None
+        if lossy:
+            params, resid = carry
+        elif async_mode:
+            params, astate = carry
+        else:
+            params = carry
+        if scen is None:
+            scen = default_scen
+        xb, yb = fed.data.minibatch(E * m, generator, idx=batch_idx) \
+            if batch is None else batch
         xb = xb.reshape((N, E, m) + tuple(xb.shape[2:]))
         yb = yb.reshape(N, E, m)
         # Step 2 preamble: the server selects the participating subset S^i
@@ -274,7 +457,24 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 if C < N else torch.arange(N, device=dev)
         sel = sel.to(dev)
         xb, yb = xb[sel], yb[sel]
-        byz = fed.byz_mask[sel]
+        byz = scen["byz"][sel]
+
+        live = strag = None
+        if async_mode:
+            # participation is 1 here, so sel is arange(N): rows are ids
+            if "cohort" in scen:
+                m_r = scen["cohort"].index_select(0, astate["r"].view(1))[0]
+            else:
+                m_r = torch.ones((N,), dtype=torch.bool, device=dev)
+            if fault_rows is None:
+                fault_rows = draw_faults(N, fcfg, generator, dev)
+            fault_rows = fault_rows.to(dev)
+            # a dropped or late update never arrives this round: weight 0
+            # through the fold's ``live`` channel
+            live = m_r & ~fault_rows \
+                if fcfg.kind in ("dropout", "straggler") else m_r
+            if straggler:
+                strag = m_r & fault_rows
 
         # ---- data-level attacks ----
         if acfg.kind == "label_flip":
@@ -291,7 +491,6 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
         root = fed.server.compute_root_update(
             params, grad_fn, lr, E, fed.root_x, fed.root_y) \
             if entry.needs_root else None
-        gaussian = acfg.kind == "gaussian"
 
         if stream_entry is not None:
             # ---- Steps 2-5, streaming: fold blocks into an O(D) state ----
@@ -305,13 +504,22 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
             d = sum(v.numel() for v in params.values())
 
             def block_fn(blk, valid):
-                xs, ys, byz_b, sel_b, noise_b = blk
+                if async_mode:
+                    xs, ys, byz_b, sel_b, noise_b, live_b, fault_b = blk
+                else:
+                    xs, ys, byz_b, sel_b, noise_b = blk
                 U_blk, _ = flatten_updates(client_update(params, xs, ys, lr))
                 if update_attack:
                     if gaussian and noise_b is None:
                         noise_b = draw_noise(generator, U_blk.shape[0], d)
-                    U_blk = apply_update_attacks(U_blk, byz_b, noise_b)
+                    U_blk = apply_update_attacks(U_blk, byz_b, noise_b, scen)
+                if async_mode and fcfg.kind == "intermittent":
+                    # a malfunction at the client boundary, after the
+                    # attack: it hits whatever the client transmits
+                    U_blk = corrupt_updates(U_blk, fault_b, fcfg)
                 ctx_blk = {"byz": byz_b}
+                if async_mode:
+                    ctx_blk["live"] = live_b
                 if entry.needs_guides:
                     ctx_blk["guide"] = fed.server.compute_guides(
                         params, grad_fn, lr, E, select=sel_b, codec=wire)
@@ -323,13 +531,39 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                     return enc, ctx_blk, new_resid
                 return U_blk, ctx_blk
 
+            # ---- bounded staleness: the buffered updates that land now
+            # fold through the same monoid, with guides recomputed at the
+            # landing round's params, and merge before finalize
+            extra_state = stale_logs = landed = land_cid = None
+            if B > 0:
+                ttl1 = astate["ttl"] - 1
+                landed = astate["on"] & (ttl1 <= 0)
+                land_cid = astate["cid"]
+                land_ctx = {"byz": scen["byz"][land_cid],
+                            # the discount rides the 0/1 valid channel
+                            "valid": landed.to(torch.float32) * discount_w}
+                if entry.needs_guides:
+                    land_ctx["guide"] = fed.server.compute_guides(
+                        params, grad_fn, lr, E, select=land_cid)
+                extra_state, stale_logs = rule.update_block(
+                    rule.init(d, dev), astate["u"], land_ctx)
+
+            args = (xb, yb, byz, sel, noise)
+            if async_mode:
+                args = args + (live, fault_rows)
             out = stream_aggregate(
-                rule, block_fn, (xb, yb, byz, sel, noise), chunk, d=d,
-                shards=cfg.stream_shards, pods=cfg.pods, block_extra=lossy)
+                rule, block_fn, args, chunk, d=d, shards=cfg.stream_shards,
+                pods=cfg.pods, block_extra=lossy, extra_state=extra_state)
             delta, agg_logs, client_logs = out[:3]
             if lossy:
                 resid.index_copy_(0, sel, out[3])
             logs.update(client_logs)
+            if async_mode:
+                account_async(logs, scen, live, landed, land_cid,
+                              stale_logs)
+                astate = refill_buffer(params, astate, xb, yb, lr, scen,
+                                       strag, landed, generator, slab_noise,
+                                       d, logs)
         else:
             # ---- Step 2: local SGD, client_chunk clients at a time ----
             updates = chunked_vmap(
@@ -343,7 +577,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                     rows = C if chunk is None or chunk >= C else chunk
                     noise = torch.cat([draw_noise(generator, rows, U.shape[1])
                                        for _ in range(-(-C // rows))])[:C]
-                U = apply_update_attacks(U, byz, noise)
+                U = apply_update_attacks(U, byz, noise, scen)
             if lossy:
                 # the registry rules receive the decoded updates: the bits
                 # the server recovers from the wire
@@ -362,24 +596,214 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
         logs.update(agg_logs)
         step = unravel(delta)
         new_params = {k: params[k] - step[k] for k in params}
-        return ((new_params, resid) if lossy else new_params), logs
+        if lossy:
+            return (new_params, resid), logs
+        if async_mode:
+            return (new_params, astate), logs
+        return new_params, logs
+
+    def refill_buffer(params, astate, xb, yb, lr, scen, strag, landed,
+                      generator, slab_noise, d, logs):
+        """The round's stragglers take the free slots of the pending slab
+        in client order (the overflow expires); landed slots free up.  A
+        slot stores only the flat update, recomputed from the round's own
+        batch at the round's own params, so the slab stays O(B·D).
+        Writes the three staleness counts into ``logs``."""
+        i32 = torch.int32
+        zero = torch.zeros((), dtype=i32, device=dev)
+        buffered, expired = zero, zero
+        folded = landed.sum(dtype=i32) if landed is not None else zero
+        new = {"r": astate["r"] + 1}
+        if expire_all:
+            expired = strag.sum(dtype=i32)
+        if B > 0:
+            on2 = astate["on"] & ~landed
+            ttl_keep = (astate["ttl"] - 1).clamp_min(0)
+            if straggler and not expire_all:
+                ns = strag.sum(dtype=torch.int64)
+                ar = torch.arange(N, device=dev)
+                order = torch.argsort(torch.where(strag, ar, N + ar))
+                free = ~on2
+                free_rank = free.to(torch.int64).cumsum(0) - 1
+                take = free & (free_rank < ns)
+                src = order[free_rank.clamp(0, N - 1)]
+                U_s, _ = flatten_updates(
+                    client_update(params, xb[src], yb[src], lr))
+                if update_attack:
+                    if gaussian and slab_noise is None:
+                        slab_noise = draw_noise(generator, B, d)
+                    U_s = apply_update_attacks(U_s, scen["byz"][src],
+                                               slab_noise, scen)
+                new.update(
+                    u=torch.where(take[:, None], U_s.to(torch.float32),
+                                  astate["u"]),
+                    cid=torch.where(take, src, astate["cid"]),
+                    ttl=torch.where(take, torch.full_like(ttl_keep,
+                                                          fcfg.delay),
+                                    ttl_keep),
+                    on=on2 | take)
+                buffered = take.sum(dtype=i32)
+                expired = ns.to(i32) - buffered
+            else:
+                new.update(u=astate["u"], cid=astate["cid"], ttl=ttl_keep,
+                           on=on2)
+        logs["stale_buffered"] = buffered
+        logs["stale_folded"] = folded
+        logs["stale_expired"] = expired
+        return new
+
+    def account_async(logs, scen, live, landed, land_cid, stale_logs):
+        """Landed slot rows join the per-client logs, so the tag and
+        TPR/FPR accounting scores them at their landing round; ``cand``
+        marks the rows that took part."""
+        cand = live
+        if stale_logs is not None:
+            for k in list(logs):
+                if k in stale_logs:
+                    logs[k] = torch.cat([logs[k], stale_logs[k]])
+            logs["byz"] = torch.cat([logs["byz"], scen["byz"][land_cid]])
+            logs["sel"] = torch.cat([logs["sel"], land_cid])
+            cand = torch.cat([live, landed])
+        logs["cand"] = cand
+        logs["cohort"] = live.sum(dtype=torch.int32)
 
     body.streaming = stream_entry is not None
     body.streaming_fallback = streaming_fallback
     body.lossy = lossy
     body.codec = codec
+    body.async_mode = async_mode
     return body
 
 
-def _to_host(v: torch.Tensor):
-    v = v.detach().cpu()
+# ----------------------------------------------------------------------
+# The host side of a run
+# ----------------------------------------------------------------------
+
+def _fetch(leaf):
+    """One leaf on the host: a Python number for a 0-d tensor, a numpy
+    array otherwise (numbers and arrays pass through)."""
+    if not torch.is_tensor(leaf):
+        return leaf
+    v = leaf.detach()
     return v.item() if v.dim() == 0 else v.numpy()
+
+
+def host_sync(tree):
+    """The simulator's one device-to-host point: every value
+    ``run_federated_training`` moves off the card flows through here, the
+    per-round loop once per eval point, the engine once per run.  Keeping
+    one choke point makes the sync count measurable: wrap this function
+    with a counter and run under ``torch.cuda.set_sync_debug_mode("error")``,
+    which this function alone lifts while it reads.
+
+    Every CUDA leaf is copied into pinned host memory without blocking,
+    then the stream is synchronised once.  With the flight recorder on,
+    each call records a ``sync`` event with the bytes moved and the
+    fetch's wall time."""
+    rec = telemetry.get_recorder()
+    leaves = [x for x in tree_leaves(tree) if torch.is_tensor(x)]
+    t0 = rec.now() if rec.enabled else 0.0
+    cuda = [x for x in leaves if x.is_cuda]
+    if cuda:
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            staged = {}
+            for x in cuda:
+                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                h.copy_(x, non_blocking=True)
+                staged[id(x)] = h
+            torch.cuda.current_stream(cuda[0].device).synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        tree = tree_map(lambda x: staged.get(id(x), x)
+                        if torch.is_tensor(x) else x, tree)
+    out = tree_map(_fetch, tree)
+    if rec.enabled:
+        rec.event("sync", bytes=int(sum(x.numel() * x.element_size()
+                                        for x in leaves)),
+                  leaves=len(leaves), dur=round(rec.now() - t0, 6))
+    return out
+
+
+def eval_row(host, s: int) -> dict:
+    """Eval point ``s`` of a synced metric buffer (each key's leading axis
+    indexes eval points), in the form the per-round loop records: Python
+    numbers for scalars, numpy arrays otherwise."""
+    out = {}
+    for k, v in host.items():
+        x = v[s]
+        out[k] = x.item() if isinstance(x, np.generic) else x
+    return out
+
+
+def drain_round_telemetry(server: SecureServer, tel_host, *,
+                          uplink_bytes=None, cell=None) -> None:
+    """The host side of the per-round telemetry block, after the run's
+    one host sync: ``tel_host`` maps each key to its (R,) host array.
+    Each round becomes a ``round`` event on the flight recorder and a
+    ``round_tags`` entry (plus, in async rounds, ``cohort_resample`` and
+    ``stale_*`` entries) on the SecureServer's audit chain.  Reads no
+    device value."""
+    if not tel_host:
+        return
+    n = len(next(iter(tel_host.values())))
+    rec = telemetry.get_recorder()
+    extra = {} if cell is None else {"cell": cell}
+    for r in range(n):
+        row = {k: (v[r].item() if hasattr(v[r], "item") else v[r])
+               for k, v in tel_host.items()}
+        if uplink_bytes is not None:
+            row["uplink_bytes"] = uplink_bytes
+        row.update(extra)
+        if rec.enabled:
+            rec.event("round", index=r + 1, **row)
+        tags = {k: row[k] for k in ("kept", "tagged", "c1_pass", "c2_pass")
+                if k in row}
+        if tags:
+            server.record_round_tags(r + 1, **tags, **extra)
+        if "cohort" in row:
+            server.record_cohort_resample(r + 1, int(row["cohort"]), **extra)
+        for decision in ("buffered", "folded", "expired"):
+            k = f"stale_{decision}"
+            if k in row and int(row[k]) > 0:
+                server.record_stale(r + 1, decision, int(row[k]), **extra)
+
+
+def _record_eval(history, i, metrics, log_every) -> None:
+    """Append one eval point's host metric dict to the history (every key
+    ``make_eval_fn`` computes is recorded)."""
+    history["round"].append(i)
+    for k, v in metrics.items():
+        history.setdefault(k, []).append(v)
+    if log_every and i % log_every == 0:
+        print(f"  round {i:5d} acc={metrics['acc']:.4f}")
+
+
+def _lr_vector(lr_schedule: Callable, rounds: int,
+               device: DeviceLike = None) -> torch.Tensor:
+    """The schedule at rounds 1..R as one (R,) fp32 device vector (the
+    schedules return fp32 values, so the vector holds them exactly).  The
+    copy to the card does not block."""
+    dev = resolve_device(device)
+    v = torch.tensor(np.asarray([lr_schedule(i)
+                                 for i in range(1, rounds + 1)],
+                                np.float32))
+    if dev.type == "cuda":
+        v = v.pin_memory()
+    return v.to(dev, non_blocking=True)
+
+
+def _empty_history():
+    return {"round": [], "acc": [], "mask_tpr": [], "mask_fpr": [],
+            "c1c2": []}
 
 
 def run_federated_training(model: SmallModel, fed: Federation, cfg: FLConfig,
                            lr_schedule: Callable, log_every: int = 0,
-                           generator: Optional[torch.Generator] = None
-                           ) -> Dict:
+                           generator: Optional[torch.Generator] = None,
+                           use_engine: bool = True, host_eval: bool = False,
+                           engine=None) -> Dict:
     """Run ``cfg.rounds`` rounds on the federation's device; returns the
     metric history (keys ``round``, ``acc``, ``mask_tpr``, ``mask_fpr``,
     ``c1c2``, ``final_acc``, ``params``, ``streaming_fallback`` and the
@@ -387,34 +811,102 @@ def run_federated_training(model: SmallModel, fed: Federation, cfg: FLConfig,
     The round draws come from ``generator`` (default: seeded from
     ``cfg.seed`` on the device); the initial params from a generator
     seeded with ``cfg.seed + 1``.  Under a lossy codec the error-feedback
-    residuals start at zero."""
+    residuals start at zero.
+
+    The engine (the default) runs the whole run without a host read and
+    syncs once at the end (:class:`~repro_torch.fl.engine.RoundEngine`);
+    ``host_eval=True`` runs it one eval segment at a time with a sync per
+    eval point; ``use_engine=False`` keeps the per-round loop, one sync per
+    eval point.  All three give the same history and params, bit for bit.
+    ``engine`` reuses a built ``RoundEngine`` (its CUDA graph too); the
+    run's scenario comes from this call's ``cfg``, so an engine built for
+    one attack magnitude serves another.  ``log_every`` prints eval lines
+    as they reach the host: at the end on the one-sync path."""
+    from .engine import RoundEngine    # the engine builds on this module
     dev = fed.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
     params = model.init(torch.Generator(device=dev).manual_seed(cfg.seed + 1),
                         dev)
     d = sum(v.numel() for v in params.values())
-    body = make_round_body(model, fed, cfg)
-    eval_fn = make_eval_fn(model, fed, cfg)
-    carry = (params, torch.zeros((cfg.n_clients, d), dtype=torch.float32,
-                                 device=dev)) if body.lossy else params
-    history = {"round": [], "acc": [], "mask_tpr": [], "mask_fpr": [],
-               "c1c2": []}
-    with torch.no_grad():
-        for i in range(1, cfg.rounds + 1):
-            carry, logs = body(carry, lr_schedule(i), generator)
-            params = carry[0] if body.lossy else carry
-            if i % cfg.eval_every == 0 or i == cfg.rounds:
-                metrics = {k: _to_host(v)
-                           for k, v in eval_fn(params, logs).items()}
-                history["round"].append(i)
-                for k, v in metrics.items():
-                    history.setdefault(k, []).append(v)
-                if log_every and i % log_every == 0:
-                    print(f"  round {i:5d} acc={metrics['acc']:.4f}")
+    history = _empty_history()
+    cstats = comm_stats(cfg, d)
+    mode = ("one-sync" if use_engine and not host_eval
+            else "host-eval" if use_engine else "per-round")
+    run_span = telemetry.span(
+        "run_training", n_clients=cfg.n_clients, rounds=cfg.rounds,
+        aggregator=cfg.aggregator, attack=cfg.attack.kind, d=int(d),
+        chunk=cfg.client_chunk, pods=cfg.pods, codec=cfg.compression,
+        streaming=bool(cfg.streaming), mode=mode)
+    if use_engine and engine is None:
+        engine = RoundEngine(model, fed, cfg)
+    with torch.no_grad(), run_span:
+        if use_engine:
+            lrs = _lr_vector(lr_schedule, cfg.rounds, dev)
+            scen = make_scenario(cfg, fed)
+            if not host_eval:
+                with telemetry.span("dispatch"):
+                    params, _, metrics, eval_rounds = engine.run_training(
+                        params, generator, lrs, scen)
+                host = host_sync(metrics)              # THE host sync
+                # the telemetry block rides the same sync and never
+                # enters the history
+                drain_round_telemetry(
+                    fed.server, host.pop("_tel", None),
+                    uplink_bytes=cstats["uplink_bytes_per_round"])
+                for s, i in enumerate(eval_rounds):
+                    _record_eval(history, i, eval_row(host, s), log_every)
+            else:
+                carry = engine.init_carry(params)
+                i = 0
+                while i < cfg.rounds:
+                    n = min(engine.eval_every, cfg.rounds - i)
+                    carry, logs = engine.run_segment(carry, generator,
+                                                     lrs[i:i + n], scen)
+                    i += n
+                    _record_eval(history, i, host_sync(engine.eval_metrics(
+                        engine.carry_params(carry), logs)), log_every)
+                params = engine.carry_params(carry)
+            streaming_fallback = engine.streaming_fallback
+        else:
+            body = make_round_body(model, fed, cfg)
+            eval_fn = make_eval_fn(model, fed, cfg)
+            if body.lossy:
+                carry = (params, torch.zeros((cfg.n_clients, d),
+                                             dtype=torch.float32, device=dev))
+            elif body.async_mode:
+                carry = (params, init_async_state(cfg, (d,), dev))
+            else:
+                carry = params
+            scen = make_scenario(cfg, fed)
+            for i in range(1, cfg.rounds + 1):
+                carry, logs = body(carry, lr_schedule(i), generator,
+                                   scen=scen)
+                params = carry[0] if body.lossy or body.async_mode \
+                    else carry
+                if i % cfg.eval_every == 0 or i == cfg.rounds:
+                    _record_eval(history, i, host_sync(eval_fn(params, logs)),
+                                 log_every)
+            streaming_fallback = body.streaming_fallback
     history["final_acc"] = history["acc"][-1] if history["acc"] \
         else float("nan")
     history["params"] = params
-    history["streaming_fallback"] = body.streaming_fallback
-    history.update(comm_stats(cfg, d))
+    history["streaming_fallback"] = streaming_fallback
+    history.update(cstats)
     return history
+
+
+def run_federated_sweep(model: SmallModel, fed: Federation, spec,
+                        lr_schedule: Optional[Callable] = None,
+                        log_every: int = 0, graph: bool = False) -> list:
+    """Run a whole experiment grid (a :class:`~repro_torch.fl.sweep.SweepSpec`):
+    the sweep counterpart of :func:`run_federated_training`.  Cells are
+    partitioned into structural groups; each group runs on one engine,
+    built (and with ``graph=True`` captured) once, with one host sync per
+    group.  Returns one history per cell, in ``spec.cells()`` order, each
+    bitwise equal to that cell's solo run against a federation created
+    with the cell's config and the same federation generator as ``fed``
+    (``fl/sweep.py``)."""
+    from .sweep import execute_sweep    # sweep builds on this module
+    return execute_sweep(model, fed, spec, lr_schedule=lr_schedule,
+                         log_every=log_every, graph=graph)

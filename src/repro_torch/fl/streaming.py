@@ -159,7 +159,8 @@ def weighted_mean_rule(weight_fn: Callable, *, floor: float = 1.0,
     and its values are zeroed before anything multiplies them (NaN · 0 is
     NaN, so zeroing the weight alone would not do).  On finite data the
     guard changes no bit.  Rows whose ``valid`` context is 0 (padding)
-    get weight exactly 0.
+    or whose ``live`` context is 0 (an async round's absent clients) get
+    weight exactly 0.
     """
     decode = (lambda u: u) if codec is None else codec.decode
     guard = codec is None
@@ -182,10 +183,15 @@ def weighted_mean_rule(weight_fn: Callable, *, floor: float = 1.0,
             ff = fin.to(torch.float32)
             a, b = a * ff, b * ff
             logs = dict(logs, nonfinite=~fin)
-        v = ctx.get("valid")
-        if v is not None:
-            vf = v.to(torch.float32)
-            a, b = a * vf, b * vf
+        # two multiplicative weight channels: "valid" (0/1 padding rows
+        # set by stream_aggregate, or a landed slab's staleness discount)
+        # and "live" (async cohort membership minus dropouts, set by the
+        # round body); x1.0 changes no bit
+        for key in ("valid", "live"):
+            v = ctx.get(key)
+            if v is not None:
+                vf = v.to(torch.float32)
+                a, b = a * vf, b * vf
         return ud, a, b, logs
 
     def init(d: int, device=None) -> AggState:
@@ -312,7 +318,8 @@ def stream_aggregate(rule: StreamingAggregator, block_fn: Callable,
                      args: tuple, chunk: Optional[int], *, d: int,
                      shards: Optional[int] = None,
                      pods: Optional[int] = None,
-                     block_extra: bool = False):
+                     block_extra: bool = False,
+                     extra_state: Optional[AggState] = None):
     """Fold per-client updates into ``rule``'s state one ``chunk``-sized
     block at a time; the (C, D) update matrix never exists.
 
@@ -337,6 +344,11 @@ def stream_aggregate(rule: StreamingAggregator, block_fn: Callable,
     (chunk, ...) pytree that rides out of the fold beside the logs (the
     error-feedback residual rows), unblocked to (C, ...) and returned
     fourth.
+
+    ``extra_state`` (an AggState, or None) is a partial state folded
+    outside the sweep and merged into its result just before
+    ``finalize``: the async round's landed stale updates, which belong to
+    no current block.  None merges nothing.
 
     Returns ``(delta, agg_logs, client_logs)`` (plus ``extra``).
     """
@@ -366,6 +378,9 @@ def stream_aggregate(rule: StreamingAggregator, block_fn: Callable,
     pod_states = [tree_merge(rule.merge, [fold(g) for g in pod])
                   for pod in ids]
     state = tree_merge(rule.merge, pod_states)
+    if extra_state is not None:
+        # one canonical trailing merge, part of the fixed association
+        state = rule.merge(state, extra_state)
     delta, agg_logs = rule.finalize(state)
     client_logs = unblock(logs_out.buf, k, chunk, C)
     if block_extra:

@@ -605,13 +605,12 @@ def test_batch_iterator_matches_the_reference():
 
 CENSUS = ["core/diversefl", "core/attacks", "core/sample_filter", "core/tee",
           "data/synthetic", "data/partition", "data/pipeline", "optim/sgd",
-          "optim/schedules", "fl/rsa", "fl/small_models"]
+          "optim/schedules", "fl/rsa", "fl/small_models", "fl/faults",
+          "fl/telemetry", "fl/sweep", "fl/engine"]
 # each name the port leaves out, with the ROADMAP item that takes it
 EXCLUDED = {
     "data/synthetic.make_token_stream":
         "S6: the zoo's training path (ROADMAP queue 1, item 4)",
-    "data/pipeline.FederatedData.segment_minibatches":
-        "S5: the round engine (ROADMAP queue 1, item 2)",
 }
 
 
