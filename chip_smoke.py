@@ -64,7 +64,9 @@ Phases (any failure raises and the script exits non-zero):
                8192, dh 80, window 4096), kernel_bench's (1, 8, 1024, 128),
                a ragged S of 3000 with a window, MQA at dh 256 with a
                softcap, dh 72 with a window and minitron-8b's heads (32/8,
-               dh 128, S 4096), each in bf16 (the tensor-core kernel, held
+               dh 128, S 4096), deepseek-moe-16b's (16/16, dh 128) and
+               kimi-k2's (64/8, dh 112), each in bf16 (the tensor-core
+               kernel, held
                to one bf16 step of the plain version on random inputs and
                on the exact mask probe) and
                fp32 (the SIMT kernel, 1e-4 and bitwise repeatable; the
@@ -116,9 +118,35 @@ Phases (any failure raises and the script exits non-zero):
                intermittent run, the audit chain, observe's selftest on the
                card.  [sweep]: sweep_bench.py's 96-cell grid, every cell
                bitwise its solo run, one build (capture) per group, cells/s
- 10. result  - a capture that reads the card on the host fails by name; a
+ 10. slice 10 - [serve-s7b], after [serve]: deepseek-moe-16b (28 layers),
+               kimi-k2-1t-a32b (2 of 61: the dense prelude and one MoE
+               layer of 384 experts), jamba-v0.1-52b (8 of 32: one layout
+               group), llama-3.2-vision-90b (10 of 100: two groups, 1,600
+               patches from vision_patches) and whisper-medium (24 + 24,
+               1,500 frames from audio_frames) in bf16 at their published
+               widths, random weights built on the card, every cross
+               layer's xgate 0.5: a timed prefill 2 x 4096 (whisper's
+               decoder 2 x 448) with exact launch counts, two MoE prefills
+               bitwise equal, the dropped assignments at capacity 1.25,
+               the plain path within the bf16 bar (MoE routing pinned to
+               the kernel path's; where the plain path's own routing, or
+               the decode step's, parts from it, each flip in the first
+               such layer a near-tie within one rounding step of the
+               router input), decode from a prefill's own cache (MoE where
+               nothing drops) against a prefill of S + 1, ms a step and
+               busy share, one profiled deepseek-moe prefill's top device
+               operations and MoE share, greedy serving of 4 requests;
+               the fp32 variants at one layout group (not kimi-k2): the
+               kernel path vs the plain path (each routing itself), decode
+               vs forward at T = 64.  [serve] runs through the same
+               function at published depth.
+               [kernels-s4] also times deepseek-moe's and kimi-k2's
+               causal heads; [card-vs-cpu-s4] covers all seven SMOKE
+               configs
+ 11. result  - a capture that reads the card on the host fails by name; a
                ``kernels`` JSON line, then ``{"ok": true, ...}`` last
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -179,6 +207,9 @@ from repro_torch.kernels.similarity import (similarity_cuda,  # noqa: E402
 from repro_torch.launch import observe  # noqa: E402
 from repro_torch.launch.serve import (make_prefill,  # noqa: E402
                                       make_serve_step)
+from repro_torch.models import frontends  # noqa: E402
+from repro_torch.models import model as zoo_model  # noqa: E402
+from repro_torch.models import moe as zoo_moe  # noqa: E402
 from repro_torch.optim import inv_sqrt_lr  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
@@ -232,13 +263,17 @@ S3_SHAPES = [S3_SHAPE, (23, D_MLP3), (64, D_MLP3), (23, 16411),
 # slice 4.  Flash: (B, H, K, S, dh, window, softcap, tag); the first is
 # the main path's (h2o-danube-1.8b's prefill), kernel_bench's is
 # benchmarks/kernel_bench.py's shape; dh 72 is padded to the bf16 kernel's
-# bucket of 80; the last has minitron-8b's heads (32/8, dh 128)
+# bucket of 80; minitron-8b's heads (32/8, dh 128); slice 10's
+# deepseek-moe-16b heads (16/16, dh 128) and kimi-k2's (64/8, dh 112,
+# padded to the bucket of 128), causal as their prefills run them
 FLASH_SHAPES = [(2, 32, 8, 8192, 80, 4096, None, "h2o-danube prefill"),
                 (1, 8, 8, 1024, 128, None, None, "kernel_bench"),
                 (1, 32, 8, 3000, 80, 1000, None, "ragged S, window"),
                 (1, 8, 1, 2048, 256, None, 30.0, "MQA dh 256 softcap"),
                 (1, 16, 4, 2000, 72, 700, None, "dh 72, window"),
-                (1, 32, 8, 4096, 128, None, None, "minitron-8b heads")]
+                (1, 32, 8, 4096, 128, None, None, "minitron-8b heads"),
+                (1, 16, 16, 4096, 128, None, None, "deepseek-moe heads"),
+                (1, 64, 8, 4096, 112, None, None, "kimi-k2 heads")]
 # masked_aggregate's client counts at S1's D: both register chunkings (8
 # rows up to N = 8, 32 above) and their ragged ends
 MASKED_NS = (1, 7, 8, 9, 33, 64)
@@ -254,6 +289,29 @@ FP32_SHAPES = {"h2o-danube-1.8b": (2, 8192), "falcon-mamba-7b": (1, 4096)}
 # greedy steps decoded from the bf16 prefill's cache: 1 checked against a
 # prefill of S + 1 tokens, then timed, then traced by the profiler
 LONG_STEPS = (1, 8, 4)
+# [serve-s7b]: the five configs slice 10 brings, in bf16 at their
+# published widths: (layers, or None for the published depth; B; S).
+# Fewer layers is the only cut, a whole layout group at least with the
+# dense prelude kept: in bf16 kimi-k2 is 2.05 TB, jamba 103 GB and
+# llama-vision 173 GB, the card 80 GB
+S7B_SHAPES = {"deepseek-moe-16b": (None, 2, 4096),
+              "kimi-k2-1t-a32b": (2, 2, 4096),
+              "jamba-v0.1-52b": (8, 2, 4096),
+              "llama-3.2-vision-90b": (10, 2, 4096),
+              "whisper-medium": (None, 2, 448)}
+# the decode check runs MoE at capacity_factor = n_experts / top_k, where
+# nothing drops (a decode step of B tokens drops nothing, a prefill at the
+# published 1.25 does); its (E, C, D) block then holds E * (t + 1) rows:
+# 45 GB at kimi-k2's 384 experts and t = 8192, so its check prefills 512
+S7B_DECODE_S = {"kimi-k2-1t-a32b": 512}
+# the fp32 variants: one layout group with the prelude (whisper: one
+# decoder layer, its 24 encoder layers); kimi-k2 has none, its one MoE
+# layer alone is 75 GB in fp32
+S7B_FP32_SHAPES = {"deepseek-moe-16b": (1, 4096),
+                   "jamba-v0.1-52b": (1, 4096),
+                   "llama-3.2-vision-90b": (1, 4096),
+                   "whisper-medium": (2, 448)}
+XGATE = 0.5      # every cross layer's gate: tanh(0) = 0 would hide it
 
 
 def log(msg):
@@ -1711,24 +1769,45 @@ def phase_kernels_s4(card):
             "mamba_scan": scan[SCAN_SHAPES[0][-1]]}
 
 
-def zoo_counts(cfg=None):
-    """Launches of one prefill of ``cfg`` through the kernels (None: no
-    kernel at all): one flash call per attention layer, one scan per
-    Mamba layer."""
+def zoo_counts(cfg=None, S=0):
+    """Launches of one forward of ``cfg`` over S tokens (None: no kernel
+    at all): with ``cfg.use_kernels``, one flash call per self-attention
+    layer (the dense prelude's too) when S > attn_direct_max, one scan per
+    Mamba layer.  Cross attention and the encoder launch none: the
+    reference runs them plain too."""
     c = dict.fromkeys(ops.KERNELS, 0)
-    if cfg is not None:
-        c["mamba_scan" if cfg.attn_free else "flash_attention"] = \
-            cfg.n_layers
+    if cfg is not None and cfg.use_kernels:
+        mixers = ([m for m, _ in cfg.layout] * cfg.n_groups
+                  + ["attn"] * cfg.first_k_dense)
+        if S > cfg.attn_direct_max:
+            c["flash_attention"] = sum(m in ("attn", "swa", "attn_x")
+                                       for m in mixers)
+        c["mamba_scan"] = mixers.count("mamba")
     return c
 
 
-def greedy_serve(params, cfg, prompt, gen_len):
+def copy_cross(cfg, dst, src):
+    """Each cross layer's K/V from the cache ``src`` into ``dst``."""
+    for li, (mixer, _) in enumerate(cfg.layout):
+        if mixer in ("xattn", "attn_x"):
+            for key in ("k", "v"):
+                dst["groups"][li]["cross"][key].copy_(
+                    src["groups"][li]["cross"][key])
+
+
+def greedy_serve(params, cfg, prompt, gen_len, emb=None):
     """The serving loop of examples/serve_decode.py through the port's
-    serve step: teacher-force the prompt, then argmax.  -> (tokens
+    serve step: teacher-force the prompt, then argmax; the cross layers'
+    K/V (``emb``: the frame or patch embeddings) come from a prefill of
+    the first token, as a server fills them once a request.  -> (tokens
     (B, P + gen_len), ms per decode step)."""
     B, P = prompt.shape
     cache_len = P + gen_len
     cache = models.init_cache(cfg, B, cache_len, prompt.device)
+    if emb:
+        _, pc = make_prefill(cfg)(params, prompt[:, :1], **emb)
+        copy_cross(cfg, cache, pc)
+        del pc
     step = make_serve_step(cfg)
     tok = prompt[:, :1]
     out = [tok]
@@ -1774,22 +1853,32 @@ def check_bf16_logits(what, lg, ref, cfg):
 
 def decode_cache(cfg, pcache, B, S, cache_len):
     """The decode cache that continues a prefill of S tokens: Mamba's conv
-    and SSM states as they are; an attention layer's K/V of every position
+    and SSM states and the cross layers' K/V as they are; a self-attention
+    layer's K/V of every position (the prelude's and attn_x's "self" too)
     into the linear cache, a sliding-window layer's last ``window`` of
     them into the ring at ``position % window``, where the decode step
     looks for them."""
     cache = models.init_cache(cfg, B, cache_len, DEV)
+
+    def fill_kv(dst, src, ring):
+        C = dst["k"].shape[-3]
+        pos = torch.arange(max(S - C, 0), S, device=DEV)
+        slot = pos % C if ring else pos
+        for key in ("k", "v"):
+            dst[key][..., slot, :, :] = src[key][..., pos, :, :]
+
+    for dst, src in zip(cache.get("prelude", []), pcache["prelude"]):
+        fill_kv(dst, src, False)
     for li, (mixer, _) in enumerate(cfg.layout):
         src, dst = pcache["groups"][li], cache["groups"][li]
         if mixer == "mamba":
             for key in dst:
                 dst[key].copy_(src[key])
-            continue
-        C = dst["k"].shape[2]
-        pos = torch.arange(max(S - C, 0), S, device=DEV)
-        slot = pos % C if mixer == "swa" else pos
-        for key in ("k", "v"):
-            dst[key][:, :, slot] = src[key][:, :, pos]
+        elif mixer == "attn_x":
+            fill_kv(dst["self"], src["self"], False)
+        elif mixer != "xattn":
+            fill_kv(dst, src, mixer == "swa")
+    copy_cross(cfg, cache, pcache)
     return cache
 
 
@@ -1805,22 +1894,45 @@ def device_kernels(prof):
                   reverse=True)
 
 
-def long_decode(card, arch, cfg, params, tokens, pcache, B, S):
+def decode_free_err(params, cfg, tokens, pcache, B, S, lg_ref, routed,
+                    rows):
+    """The first decode step routing its tokens itself: its max |logit
+    err| against the prefill of S + 1 tokens, and where its routing parts
+    from that prefill's (``routed``, its tokens at ``rows``), each such
+    flip held to rounding (:func:`routing_flips`)."""
+    cache = decode_cache(cfg, pcache, B, S, S + 1)
+    with torch.inference_mode(), moe_probe() as own:
+        lg, _ = models.decode_step(params, cfg, tokens[:, S:S + 1], cache, S)
+    return (lg - lg_ref).abs().max().item(), routing_flips(routed, own, rows)
+
+
+def long_decode(card, arch, cfg, params, tokens, pcache, B, S, emb=None,
+                tag="[serve]"):
     """Greedy decode at the prefill's context: the bf16 prefill's cache
     turned into the decode cache, one step checked against a prefill of
     S + 1 tokens (a sliding-window layer's ring wraps there: position S
     takes the slot of S - window), then steps timed on the wall clock,
     then steps traced by the profiler for the card's busy share."""
     n_check, n_timed, n_prof = LONG_STEPS
-    lg_ref, _ = make_prefill(cfg)(params, tokens[:, :S + 1])
+    emb = emb or {}
+    with moe_probe() as routed:
+        lg_ref, _ = make_prefill(cfg)(params, tokens[:, :S + 1], **emb)
     cache = decode_cache(cfg, pcache, B, S, S + sum(LONG_STEPS))
     step = make_serve_step(cfg)
+    # MoE: the checked step routes each token as the prefill routed it
+    # (pinned_routing); the timed and traced steps route freely
+    rows = torch.arange(B, device=DEV) * (S + 1) + S
     ops.reset_launch_counts()
-    with torch.inference_mode():
+    with torch.inference_mode(), pinned_routing(routed, rows):
         lg, cache = models.decode_step(params, cfg, tokens[:, S:S + 1],
                                        cache, S)
     line = check_bf16_logits(f"{arch} decode at position {S} vs a prefill "
                              f"of {S + 1}", lg, lg_ref, cfg)
+    if routed:
+        free, flips = decode_free_err(params, cfg, tokens, pcache, B, S,
+                                      lg_ref, routed, rows)
+        line += (f"; its MoE routing pinned to the prefill's (its own: max "
+                 f"|logit err| {free:.4g}, {flips})")
     tok, t = lg.argmax(-1), S + n_check
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1850,67 +1962,129 @@ def long_decode(card, arch, cfg, params, tokens, pcache, B, S):
     swa = any(mixer == "swa" for mixer, _ in cfg.layout)
     ring = f", ring of {cfg.window} wrapped" if swa and S >= cfg.window \
         else ""
-    log(f"[serve] {arch} bf16 decode at the prefill's context ({B} requests "
+    log(f"{tag} {arch} bf16 decode at the prefill's context ({B} requests "
         f"x {S} tokens{ring}): the first step vs a prefill of {S + 1}: "
         f"{line}; {step_ms:.2f} ms per greedy step over {n_timed}, {busy}; "
         f"no kernel launched [{card}]")
     del cache, lg_ref
 
 
-def serve_model(card, arch, B, S):
-    """One model of the zoo at its full published size in bf16 through the
-    kernels: the timed prefill (the counts set to 0 just before it and
-    read just after), decode at its context, the plain path's prefill
-    beside it, then greedy serving at a toy context."""
-    cfg = dataclasses.replace(configs.get(arch), use_kernels=True)
+def serve_model(card, arch, B, S, depth=None, tag="[serve]"):
+    """One config of the zoo in bf16 at its published widths (``depth``
+    layers, else its published depth) through the kernels: the timed
+    prefill (the counts set to 0 just before it and read just after), two
+    prefills bitwise equal for MoE, the plain path beside it, decode from
+    a prefill's own cache (MoE at a capacity where nothing drops), the
+    profiled deepseek-moe prefill, then greedy serving at a toy context."""
+    cfg = configs.get(arch)
+    cut = (f"{depth} of {cfg.n_layers} layers" if depth else
+           f"published depth, {cfg.n_layers} layers")
+    if cfg.is_enc_dec:
+        cut += f" and {cfg.n_enc_layers} encoder layers"
+    cfg = dataclasses.replace(cfg, use_kernels=True,
+                              n_layers=depth or cfg.n_layers)
+    n_meta = cfg.param_count()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = models.init(gen, cfg, DEV)
+    set_xgate(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in leaves(params))
+    if n_params != n_meta:
+        raise AssertionError(f"{arch}: {n_params} params built, "
+                             f"param_count() says {n_meta}")
     tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
                            device=DEV)
+    emb = frontend_emb(cfg, B, gen)
     prefill = make_prefill(cfg)
-    prefill(params, tokens[:, :S])                        # warm-up
+    with moe_probe() as routed:                          # warm-up
+        lg0, cache0 = prefill(params, tokens[:, :S], **emb)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    lg, cache = prefill(params, tokens[:, :S])
+    lg, cache = prefill(params, tokens[:, :S], **emb)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if counts != zoo_counts(cfg):
+    if counts != zoo_counts(cfg, S):
         raise AssertionError(f"{arch} prefill launches {counts}, expected "
-                             f"{zoo_counts(cfg)}")
+                             f"{zoo_counts(cfg, S)}")
     if tuple(lg.shape) != (B, 1, cfg.padded_vocab) or \
             not bool(torch.isfinite(lg[..., :cfg.vocab_size]).all()):
         raise AssertionError(f"{arch} prefill logits {tuple(lg.shape)} are "
                              f"not finite")
-    log(f"[serve] {arch} bf16 ({n_params / 1e9:.3f} B params, init "
+    extra = ""
+    if cfg.n_experts:
+        if not (torch.equal(lg, lg0) and all(
+                torch.equal(a, b) for a, b in zip(leaves(cache),
+                                                  leaves(cache0)))):
+            raise AssertionError(f"{arch}: two MoE prefills differ")
+        extra = (f"; two prefills bitwise equal (logits and every cache "
+                 f"leaf); at capacity factor {cfg.capacity_factor:g}, "
+                 f"{sum(c['dropped'] for c in routed)} of "
+                 f"{sum(c['t'] for c in routed) * cfg.top_k} expert "
+                 f"assignments dropped over {len(routed)} MoE layers "
+                 f"(largest expert load {max(c['load'] for c in routed)}, "
+                 f"capacity {routed[0]['C']})")
+    elif cfg.is_enc_dec:
+        extra = ("; no kernel: the decoder's attention is under "
+                 f"attn_direct_max ({cfg.attn_direct_max}) and the encoder's "
+                 "is plain, as in the reference")
+    del lg0, cache0
+    log(f"{tag} {arch} bf16, {cut} ({n_meta / 1e9:.3f} B params by "
+        f"param_count() on the meta device, {2 * n_meta / 1e9:.1f} GB; init "
         f"{init_s:.2f} s): prefill {B} x {S} tokens {ms:.1f} ms, "
         f"{B * S / ms * 1e3:.0f} tokens/s, peak {peak:.2f} GiB, launches "
-        f"{nonzero(counts)} [{card}]")
-    long_decode(card, arch, cfg, params, tokens, cache, B, S)
-    del cache
+        f"{nonzero(counts)}{extra} [{card}]")
+    plain = make_prefill(dataclasses.replace(cfg, use_kernels=False))
     ops.reset_launch_counts()
-    lg_p, _ = make_prefill(dataclasses.replace(cfg, use_kernels=False))(
-        params, tokens[:, :S])
+    with moe_probe() as routed_p:
+        lg_p, _ = plain(params, tokens[:, :S], **emb)
+    free = ""
+    if cfg.n_experts:
+        # the plain path's own routing parts from the kernel path's only
+        # where rounding explains it (routing_flips raises otherwise); the
+        # logits are compared with the plain path pinned to the kernel
+        # path's routing
+        free = (f"; unpinned, the plain path's own routing: max |logit err| "
+                f"{(lg - lg_p).abs().max().item():.4g}, "
+                f"{routing_flips(routed, routed_p)}")
+        with pinned_routing(routed):
+            lg_p, _ = plain(params, tokens[:, :S], **emb)
     torch.cuda.synchronize()
     if ops.launch_counts() != zoo_counts():
         raise AssertionError(f"{arch} plain prefill launched a kernel")
-    line = check_bf16_logits(f"{arch} bf16 kernel vs plain prefill", lg,
-                             lg_p, cfg)
-    log(f"[serve] {arch} bf16 prefill, kernels vs plain path: {line}")
+    try:
+        line = check_bf16_logits(
+            f"{arch} bf16 kernel vs plain prefill"
+            + (", routing pinned" if cfg.n_experts else ""), lg, lg_p, cfg)
+    except AssertionError as exc:
+        raise AssertionError(f"{exc}{free}") from None
+    log(f"{tag} {arch} bf16 prefill, kernels vs plain path"
+        + (" (MoE routing pinned to the kernel path's)" if cfg.n_experts
+           else "") + f": {line}{free}")
+    del lg_p, routed, routed_p
+    if cfg.n_experts:
+        del cache
+        dcfg, Sd = no_drop(cfg), S7B_DECODE_S.get(arch, S)
+        _, cache = make_prefill(dcfg)(params, tokens[:, :Sd], **emb)
+    else:
+        dcfg, Sd = cfg, S
+    long_decode(card, arch, dcfg, params, tokens, cache, B, Sd, emb, tag)
+    del cache
+    if arch == "deepseek-moe-16b":
+        profile_prefill(card, arch, cfg, params, tokens[:, :S], emb, tag)
     prompt = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
                            device=DEV)
-    greedy_serve(params, cfg, prompt[:, :2], 2)           # warm-up
+    emb4 = frontend_emb(cfg, 4, gen)
+    greedy_serve(params, cfg, prompt[:, :2], 2, emb4)     # warm-up
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    toks, step_ms = greedy_serve(params, cfg, prompt, 32)
+    toks, step_ms = greedy_serve(params, cfg, prompt, 32, emb4)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if ops.launch_counts() != zoo_counts():
         raise AssertionError(f"{arch} decode launched a kernel: "
@@ -1919,71 +2093,90 @@ def serve_model(card, arch, B, S):
     if not bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()):
         raise AssertionError(f"{arch}: a generated token is outside the "
                              f"vocab")
-    log(f"[serve] {arch} greedy serving at a toy context, 4 requests, "
+    log(f"{tag} {arch} greedy serving at a toy context, 4 requests, "
         f"16-token prompt teacher-forced, 32 generated: {step_ms:.2f} ms "
         f"per decode step, peak {peak:.2f} GiB, no kernel launched; "
         f"request 0: {gen_toks[0, :8].tolist()}... [{card}]")
-    del params, lg, lg_p
+    del params, lg
     torch.cuda.empty_cache()
     return counts
 
 
-def check_fp32(card, arch, B, S):
-    """The fp32 variant of a model at full size: the kernel-path prefill,
-    timed (a second call, the counts set to 0 just before it), against the
-    plain path (within 2e-3 of the largest logit: both sum in
-    fp32, in other orders); then decode against the forward at T = 64
-    with attn_direct_max = 32, so that the forward runs the kernels, to
-    2e-3 as tests/test_decode_equivalence.py holds it; for Mamba, the
-    prefill's SSM and conv states against the teacher-forced decode's."""
+def check_fp32(card, arch, B, S, depth=None, tag="[serve]"):
+    """The fp32 variant of a model (``depth`` layers, else its published
+    depth) at its published widths: the kernel-path prefill, timed (a
+    second call, the counts set to 0 just before it), against the plain
+    path (within 2e-3 of the largest logit: both sum in fp32, in other
+    orders); then decode against the forward at T = 64 with
+    attn_direct_max = 32, so that the forward runs the kernels, to 2e-3
+    as tests/test_decode_equivalence.py holds it (MoE at a capacity where
+    nothing drops, as that test does); for Mamba layers, the prefill's SSM
+    and conv states against the teacher-forced decode's."""
     cfg = dataclasses.replace(configs.get(arch), dtype="float32",
                               param_dtype="float32", use_kernels=True)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     params = models.init(gen, cfg, DEV)
+    set_xgate(params)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device=DEV)
-    lg, _ = make_prefill(cfg)(params, tokens)      # warms the allocator
+    emb = frontend_emb(cfg, B, gen)
+    with moe_probe() as routed:                 # warms the allocator too
+        lg, _ = make_prefill(cfg)(params, tokens, **emb)
     del lg
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    lg, _ = make_prefill(cfg)(params, tokens)
+    lg, _ = make_prefill(cfg)(params, tokens, **emb)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    if ops.launch_counts() != zoo_counts(cfg):
-        raise AssertionError(f"{arch} fp32 prefill launches "
-                             f"{ops.launch_counts()}")
+    counts = ops.launch_counts()
+    if counts != zoo_counts(cfg, S):
+        raise AssertionError(f"{arch} fp32 prefill launches {counts}")
+    plain = dataclasses.replace(cfg, use_kernels=False)
     t0 = time.perf_counter()
-    lg_p, _ = make_prefill(dataclasses.replace(cfg, use_kernels=False))(
-        params, tokens)
+    lg_p, _ = make_prefill(plain)(params, tokens, **emb)
     torch.cuda.synchronize()
     ms_p = (time.perf_counter() - t0) * 1e3
-    log(f"[serve] {arch} fp32 prefill {B} x {S} tokens through the kernels "
+    log(f"{tag} {arch} fp32 ({cfg.n_layers} layers, "
+        f"{cfg.param_count() / 1e9:.3f} B params) prefill {B} x {S} tokens "
+        f"through the kernels "
         f"{ms:.1f} ms ({B * S / ms * 1e3:.0f} tokens/s, launches "
-        f"{cfg.n_layers}), the plain path {ms_p:.1f} ms (TF32 off) [{card}]")
+        f"{nonzero(counts)}), the plain path {ms_p:.1f} ms (TF32 off) "
+        f"[{card}]")
+    flips = ""
+    if cfg.n_experts:
+        # each path routes itself; where they part, rounding explains it
+        with moe_probe() as routed_p:
+            make_prefill(plain)(params, tokens, **emb)
+        flips = f"; {routing_flips(routed, routed_p)}"
     err = (lg - lg_p).abs().max().item()
     lmax = lg_p[..., :cfg.vocab_size].abs().max().item()
-    if not err <= 2e-3 * max(lmax, 1.0):
+    if not err <= 2e-3 * max(lmax, 1.0) or \
+            not torch.equal(lg.argmax(-1), lg_p.argmax(-1)):
         raise AssertionError(f"{arch} fp32 kernel vs plain prefill: max "
-                             f"|err| {err} (largest logit {lmax})")
-    if not torch.equal(lg.argmax(-1), lg_p.argmax(-1)):
-        raise AssertionError(f"{arch} fp32: next tokens differ")
-    log(f"[serve] {arch} fp32 prefill {B} x {S}, kernels vs plain path: max "
+                             f"|err| {err} (largest logit {lmax}), next "
+                             f"tokens {lg.argmax(-1).tolist()} vs "
+                             f"{lg_p.argmax(-1).tolist()}{flips}")
+    log(f"{tag} {arch} fp32 prefill {B} x {S}, kernels vs plain path: max "
         f"|logit err| {err:.3g} (largest logit {lmax:.4g}), next tokens "
-        f"equal")
+        f"equal{flips}")
     del lg, lg_p
     T = 64
-    dcfg = dataclasses.replace(cfg, attn_direct_max=32)
+    dcfg = no_drop(dataclasses.replace(cfg, attn_direct_max=32))
     toks = tokens[:1, :T]
+    emb1 = {k: v[:1] for k, v in emb.items()}
     ops.reset_launch_counts()
     with torch.inference_mode():
-        out = models.apply(params, dcfg, toks, want_cache=True)
+        out = models.apply(params, dcfg, toks, want_cache=True, **emb1)
         full = models.logits(params, dcfg, out["hidden"])
         pcache = out["cache"]
-        if ops.launch_counts() != zoo_counts(cfg):
+        if ops.launch_counts() != zoo_counts(dcfg, T):
             raise AssertionError(f"{arch}: the T = {T} forward did not run "
                                  f"the kernels: {ops.launch_counts()}")
         cache = models.init_cache(dcfg, 1, T, DEV)
+        copy_cross(dcfg, cache, pcache)
         dec = []
         for t in range(T):
             lg_t, cache = models.decode_step(params, dcfg, toks[:, t:t + 1],
@@ -1992,17 +2185,22 @@ def check_fp32(card, arch, B, S):
     dec = torch.stack(dec, dim=1)
     torch.testing.assert_close(dec, full, rtol=2e-3, atol=2e-3)
     msg = ""
-    if cfg.attn_free:
+    mamba = [li for li, (m, _) in enumerate(cfg.layout) if m == "mamba"]
+    for li in mamba:
         for key in ("ssm", "conv"):
-            torch.testing.assert_close(cache["groups"][0][key],
-                                       pcache["groups"][0][key],
+            torch.testing.assert_close(cache["groups"][li][key],
+                                       pcache["groups"][li][key],
                                        rtol=2e-3, atol=2e-3)
-        h_pre = pcache["groups"][0]["ssm"]
-        serr = (cache["groups"][0]["ssm"] - h_pre).abs().max().item()
-        msg = (f"; the prefill's SSM state equals the teacher-forced "
-               f"decode's (max |err| {serr:.3g}, max |h| "
-               f"{h_pre.abs().max().item():.3g}), its conv state too")
-    log(f"[serve] {arch} fp32 decode vs forward, T = {T}: max |logit err| "
+    if mamba:
+        h_pre = torch.stack([pcache["groups"][li]["ssm"] for li in mamba])
+        h_dec = torch.stack([cache["groups"][li]["ssm"] for li in mamba])
+        msg = (f"; the prefill's SSM states equal the teacher-forced "
+               f"decode's (max |err| {(h_dec - h_pre).abs().max().item():.3g}"
+               f", max |h| {h_pre.abs().max().item():.3g}), the conv states "
+               f"too")
+    if cfg.n_experts:
+        msg += f"; MoE at capacity factor {dcfg.capacity_factor:g}"
+    log(f"{tag} {arch} fp32 decode vs forward, T = {T}: max |logit err| "
         f"{(dec - full).abs().max().item():.3g} (rtol = atol = 2e-3){msg}")
     del params, cache, pcache, out
     torch.cuda.empty_cache()
@@ -2021,29 +2219,232 @@ def phase_serve(card):
     return counts
 
 
+# ----------------------------------------------------------------------
+# slice 10 (S7b): MoE, cross attention and the encoder
+# ----------------------------------------------------------------------
+
+def frontend_emb(cfg, B, gen):
+    """The frontend stub's embeddings a config takes, on the card:
+    whisper's frames (its encoder's input), llama-vision's patches."""
+    if cfg.is_enc_dec:
+        return {"enc_emb": frontends.audio_frames(gen, B, cfg, DEV)}
+    if cfg.has_cross:
+        return {"cross_emb": frontends.vision_patches(gen, B, cfg, DEV)}
+    return {}
+
+
+def set_xgate(params):
+    for g in params["groups"]:
+        if "xgate" in g:
+            g["xgate"].fill_(XGATE)
+
+
+def no_drop(cfg):
+    """``cfg`` with a capacity every token fits in (C >= t), as
+    tests/test_decode_equivalence.py:30-34 runs MoE."""
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                               / cfg.top_k)
+
+
+def route_record(x, router, cfg):
+    """How apply_moe routes x (B, S, D): tokens, capacity, largest expert
+    load, assignments dropped, each token's expert ids (sorted), the gap
+    between its k-th and (k+1)-th router logit, and ``bound``: the most
+    that moving each coordinate of its router input by one rounding step
+    of x's dtype can change the difference of two of its logits
+    (2 max_e sum_d step(x_d) |router[d, e]|)."""
+    t, K = x.shape[0] * x.shape[1], cfg.top_k
+    xf = x.reshape(t, -1)
+    _, _, idx = zoo_moe._route(xf, router, K)
+    logits = xf.float() @ router
+    top = torch.topk(logits, min(K + 1, cfg.n_experts), dim=-1).values
+    load = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+    C = zoo_moe._capacity(t, cfg)
+    _, e = torch.frexp(xf.float())        # |x| in [2^(e-1), 2^e)
+    step = torch.where(xf == 0, 0.0, torch.finfo(x.dtype).eps
+                       * torch.exp2((e - 1).float()))
+    return {"t": t, "C": C, "load": int(load.max()),
+            "dropped": int((load - C).clamp_min(0).sum()),
+            "idx": torch.sort(idx, dim=-1).values,
+            "gap": (top[:, K - 1] - top[:, K] if K < cfg.n_experts
+                    else torch.full_like(top[:, 0], math.inf)),
+            "bound": 2 * (step @ router.abs()).amax(-1)}
+
+
+@contextlib.contextmanager
+def moe_probe(record=True, profile_range=False):
+    """While installed, every apply_moe call of the model records its
+    routing (``record``: :func:`route_record`, an extra router product and
+    sort, so no timed run records) and runs inside a ``moe_ffn`` profiler
+    range (``profile_range``).  -> the list of records, one per call."""
+    calls, real = [], zoo_model.apply_moe
+
+    def probed(x, p, cfg):
+        if record:
+            calls.append(route_record(x, p["router"], cfg))
+        if not profile_range:
+            return real(x, p, cfg)
+        with torch.profiler.record_function("moe_ffn"):
+            return real(x, p, cfg)
+
+    zoo_model.apply_moe = probed
+    try:
+        yield calls
+    finally:
+        zoo_model.apply_moe = real
+
+
+def routing_flips(a, b, rows=None):
+    """Where two recorded runs of one model route a token to other experts
+    (``rows``: which of ``a``'s tokens ``b``'s are, for a decode step): per
+    MoE layer, the tokens whose expert sets differ.  Up to the first such
+    layer the two runs route alike and their router inputs part by
+    rounding alone, so every token that flips there must be a near-tie:
+    its router-logit gap (the smaller of the two runs') within what one
+    rounding step of each input coordinate can move (``bound``).  Raises
+    where a flip is not.  After that layer a flip changes the layer's
+    output, and at a capacity that drops, which tokens an expert drops,
+    so the later layers' counts are shown only.  -> a line for the log."""
+    if rows is not None:
+        a = [{k: r[k][rows] for k in ("idx", "gap", "bound")} for r in a]
+    per_layer = [int((x["idx"] != y["idx"]).any(-1).sum())
+                 for x, y in zip(a, b)]
+    first = next((i for i, n in enumerate(per_layer) if n), None)
+    if first is None:
+        return f"every token's experts equal in all {len(a)} MoE layers"
+    x, y = a[first], b[first]
+    tok = torch.nonzero((x["idx"] != y["idx"]).any(-1))[:, 0]
+    gap = torch.minimum(x["gap"][tok], y["gap"][tok])
+    share = gap / x["bound"][tok]
+    line = (f"tokens whose experts differ per MoE layer {per_layer}; in "
+            f"the first, MoE layer {first}, {len(tok)} tokens "
+            f"{tok[:4].tolist()}{'...' if len(tok) > 4 else ''} with "
+            f"router-logit gaps up to "
+            f"{gap.max().item():.3g}, at most {share.max().item():.2%} of "
+            f"what one rounding step of the router input can move")
+    if not bool((share <= 1).all()):
+        raise AssertionError(f"a routing flip that rounding does not "
+                             f"explain: {line}")
+    return line
+
+
+@contextlib.contextmanager
+def pinned_routing(calls, rows=None):
+    """While installed, apply_moe takes each token's experts from a probed
+    run (:func:`moe_probe`), call by call (``rows``: which recorded tokens
+    this run's tokens are, for a decode step), and its gates from this
+    run's own router probabilities: the discrete choice held equal, all
+    else computed anew.  Routing is discontinuous: a near-tie within one
+    rounding step flips with the rounding of an earlier layer
+    (:func:`routing_flips` holds each such flip to that), and at a
+    capacity that drops, one flip moves which later tokens an expert
+    drops, so two routes of one model part in every layer after it."""
+    real, it = zoo_moe._route, iter(calls)
+
+    def pinned(xf, router, k):
+        probs = torch.softmax(xf.float() @ router, dim=-1)
+        idx = next(it)["idx"]
+        idx = idx if rows is None else idx[rows]
+        gates = probs.gather(1, idx)
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        return probs, gates, idx
+
+    zoo_moe._route = pinned
+    try:
+        yield
+    finally:
+        zoo_moe._route = real
+
+
+def profile_prefill(card, arch, cfg, params, tokens, emb, tag, top=12):
+    """One prefill under torch.profiler: the device operations by time,
+    the share of the MoE FFN (dispatch gathers, expert bmms, combine,
+    shared experts: the kernels launched inside apply_moe) and of flash
+    attention."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with moe_probe(record=False, profile_range=True), \
+            torch.profiler.profile(activities=acts) as prof:
+        make_prefill(cfg)(params, tokens, **emb)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    total = sum(t for t, _ in kernels)
+    if total <= 0:
+        log(f"{tag} {arch} prefill profile: device time not measured "
+            f"(the profiler saw none)")
+        return
+    # the host-side range: the device time of the kernels launched in it
+    # (the device-side annotation of the same name spans them instead)
+    moe_ms = sum(e.device_time_total for e in prof.key_averages()
+                 if e.key == "moe_ffn"
+                 and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+    flash_ms = sum(t for t, name in kernels if "flash_bf16_kernel" in name)
+    lines = "; ".join(f"{t:.2f} ms ({t / total:.1%}) {name[:70]}"
+                      for t, name in kernels[:top])
+    log(f"{tag} {arch} one bf16 prefill {tuple(tokens.shape)} under "
+        f"torch.profiler: {total:.2f} ms of device time; inside apply_moe "
+        f"{moe_ms:.2f} ms ({moe_ms / total:.1%}), flash attention "
+        f"{flash_ms:.2f} ms ({flash_ms / total:.1%}); the top {top} device "
+        f"operations: {lines} [{card}]")
+
+
+def phase_serve_s7b(card):
+    t0 = time.perf_counter()
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    for arch, (depth, B, S) in S7B_SHAPES.items():
+        t1 = time.perf_counter()
+        for k, v in serve_model(card, arch, B, S, depth,
+                                "[serve-s7b]").items():
+            counts[k] += v
+        if arch in S7B_FP32_SHAPES:
+            cfg = configs.get(arch)
+            check_fp32(card, arch, *S7B_FP32_SHAPES[arch],
+                       depth=cfg.first_k_dense + len(cfg.layout),
+                       tag="[serve-s7b]")
+        log(f"[serve-s7b] {arch} done ({time.perf_counter() - t1:.1f} s)")
+    log(f"[serve-s7b] kimi-k2-1t-a32b has no fp32 variant: its one MoE "
+        f"layer alone is 75 GB in fp32; its MoE code path is "
+        f"deepseek-moe-16b's")
+    log(f"[serve-s7b] five configs: launches exact ({nonzero(counts)} over "
+        f"their timed prefills), the kernel path agrees with the plain path "
+        f"and decode with the prefill ({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
 def phase_card_vs_cpu_s4():
-    """The SMOKE configs in fp32, the same params and tokens on the card
-    (through the kernels: attn_direct_max 16 < S = 40) and on the CPU
+    """The SMOKE configs of [serve] and [serve-s7b] in fp32, the same
+    params, tokens and frame or patch embeddings (every xgate 0.5) on the
+    card (through the kernels: attn_direct_max 16 < S = 40) and on the CPU
     (their plain versions): prefill logits within 1e-4, greedy tokens
     equal."""
     t0 = time.perf_counter()
-    for arch in SERVE_SHAPES:
+    for arch in list(SERVE_SHAPES) + list(S7B_SHAPES):
         cfg = dataclasses.replace(configs.get(arch, smoke=True),
                                   dtype="float32", param_dtype="float32",
                                   use_kernels=True, attn_direct_max=16)
-        params = tree_to_numpy(models.init(torch.Generator().manual_seed(5),
-                                           cfg, "cpu"))
-        tokens = torch.from_numpy(
-            np.random.default_rng(23).integers(0, cfg.vocab_size, (4, 40)))
+        p_cpu = models.init(torch.Generator().manual_seed(5), cfg, "cpu")
+        set_xgate(p_cpu)
+        params = tree_to_numpy(p_cpu)
+        rng = np.random.default_rng(23)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 40)))
+        emb = {}
+        if cfg.is_enc_dec or cfg.has_cross:
+            emb["enc_emb" if cfg.is_enc_dec else "cross_emb"] = \
+                torch.from_numpy(rng.normal(size=(
+                    4, cfg.cross_len, cfg.d_model)).astype(np.float32))
         runs = {}
         for dev in (DEV, "cpu"):
             p = tree_from_jax(params, dev)
+            e = {k: v.to(dev) for k, v in emb.items()}
             ops.reset_launch_counts()
-            lg, _ = make_prefill(cfg)(p, tokens.to(dev))
+            lg, _ = make_prefill(cfg)(p, tokens.to(dev), **e)
             launched = ops.launch_counts()
-            toks, _ = greedy_serve(p, cfg, tokens[:, :16].to(dev), 32)
+            toks, _ = greedy_serve(p, cfg, tokens[:, :16].to(dev), 32, e)
             runs[dev] = (lg.cpu(), toks.cpu(), launched)
-        if runs[DEV][2] != zoo_counts(cfg) or runs["cpu"][2] != zoo_counts():
+        if runs[DEV][2] != zoo_counts(cfg, 40) or \
+                runs["cpu"][2] != zoo_counts():
             raise AssertionError(f"{arch} SMOKE launches {runs[DEV][2]} on "
                                  f"the card, {runs['cpu'][2]} on the CPU")
         torch.testing.assert_close(runs[DEV][0], runs["cpu"][0], atol=1e-4,
@@ -2969,6 +3370,9 @@ def main():
     phase_card_vs_cpu_s3()
     # slice 4's main path: the timed prefills of [serve]
     counts.update(phase_serve(card))
+    # slice 10's: the timed prefills of [serve-s7b] (launches asserted
+    # there; the JSON line keeps [serve]'s, beside its kernels' timings)
+    phase_serve_s7b(card)
     phase_card_vs_cpu_s4()
     check_capture_failure(card)
     kernels = []

@@ -32,9 +32,12 @@ def make_serve_step(cfg):
 
 
 def make_prefill(cfg):
-    """prefill(params, tokens (B,S)) -> (last-position logits (B,1,V),
-    cache).  The cache is the forward's: K/V of every position for the
-    attention layers, the conv inputs and final SSM state for Mamba."""
+    """prefill(params, tokens (B,S), [enc_emb | cross_emb]) ->
+    (last-position logits (B,1,V), cache).  The cache is the forward's:
+    K/V of every position for the attention layers, the conv inputs and
+    final SSM state for Mamba, and each cross layer's K/V over the
+    encoder's output (``enc_emb``, enc-dec archs) or the patch embeddings
+    (``cross_emb``, VLMs), which decode reads as they are."""
 
     @torch.inference_mode()
     def prefill_fn(params, tokens, enc_emb=None, cross_emb=None):
@@ -47,8 +50,9 @@ def make_prefill(cfg):
 
 
 def make_forward(cfg):
-    """forward(params, tokens (B,S)) -> the mean next-token loss of the
-    full-sequence forward (fp32 scalar)."""
+    """forward(params, tokens (B,S), [enc_emb | cross_emb]) -> the mean
+    next-token loss of the full-sequence forward plus the MoE layers'
+    load-balance losses (fp32 scalar)."""
 
     @torch.inference_mode()
     def fwd(params, tokens, enc_emb=None, cross_emb=None):

@@ -1,10 +1,9 @@
 """Attention of the zoo: GQA/MQA causal self attention (full or sliding
-window), the blockwise long-sequence path, the flash-kernel route and
+window), the blockwise long-sequence path, the flash-kernel route,
 single-token decode against a KV cache (a ring buffer for sliding-window
-layers).  The counterpart of ``repro/models/attention.py:24-186``.
-
-Cross attention (``xattn``/``attn_x`` mixers) is not ported yet: it waits
-with the VLM and encoder-decoder configs (ROADMAP.md, queue 1, item 3: S7b).
+layers) and cross attention over frontend or encoder embeddings (the
+``xattn``/``attn_x`` mixers).  The counterpart of
+``repro/models/attention.py``.
 """
 from __future__ import annotations
 
@@ -41,6 +40,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 # ----------------------------------------------------------------------
 
 def make_attn_params(gen, cfg: ModelConfig, device, lead=()):
+    """wq, wk, wv, wo; a cross attention block has the same leaves."""
     d, hd = cfg.d_model, cfg.head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     pd = cfg.param_dtype
@@ -168,3 +168,29 @@ def self_attention(x, p, cfg: ModelConfig, positions, window=None,
     out = o.reshape(B, S, H * dh) @ p["wo"]
     return out, new_cache
 
+
+
+# ----------------------------------------------------------------------
+# Cross attention (VLM image layers, Whisper enc-dec)
+# ----------------------------------------------------------------------
+
+def cross_attention(x, p, cfg: ModelConfig, cross_kv):
+    """cross_kv: {"k": (B,L,K,dh), "v": (B,L,K,dh)} (computed once from
+    the frontend embeddings or the encoder output; static during decode).
+    Plain ``_sdpa`` under an all-true (B, 1, S, L) mask, no rope, as in
+    the reference: no kernel runs here."""
+    B, S, _ = x.shape
+    H, dh = cfg.n_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, dh)
+    L = cross_kv["k"].shape[1]
+    mask = torch.ones((B, 1, S, L), dtype=torch.bool, device=x.device)
+    o = _sdpa(q, cross_kv["k"], cross_kv["v"], mask, cfg.logit_softcap)
+    return o.reshape(B, S, H * dh) @ p["wo"]
+
+
+def make_cross_kv(emb, p, cfg: ModelConfig):
+    """Project frontend/encoder embeddings (B, L, D) once into cross K/V."""
+    B, L, _ = emb.shape
+    K, dh = cfg.n_kv_heads, cfg.head_dim
+    return {"k": (emb @ p["wk"]).reshape(B, L, K, dh),
+            "v": (emb @ p["wv"]).reshape(B, L, K, dh)}

@@ -6,13 +6,15 @@ Params layout (the reference's pytree, with torch tensors as leaves)::
   {"embed": (V, D),
    "prelude": [first_k_dense blocks, unstacked],
    "groups": tuple(len(layout)) of block dicts, leaves lead with n_groups,
-   "final_norm": {...}}
+   "final_norm": {...},
+   "encoder": {"groups": (block,), leaves lead with n_enc_layers,
+               "final_norm": {...}}                 # enc-dec only
+  }
 
 The reference scans the groups with ``jax.lax.scan`` (and checkpoints the
 body when ``cfg.remat``); the port runs them in a Python loop, indexing
-the stacked leaves.  The ``moe`` FFN, the ``xattn``/``attn_x`` mixers and
-the encoder are not ported yet and raise (ROADMAP.md, queue 1, item 3:
-S7b).
+the stacked leaves.  ``apply``'s ``aux`` is the sum of the MoE layers'
+load-balance losses, which ``loss_fn`` adds to the cross entropy.
 """
 from __future__ import annotations
 
@@ -22,18 +24,13 @@ from typing import Optional
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .attention import make_attn_params, self_attention
+from .attention import (_sdpa, cross_attention, make_attn_params,
+                        make_cross_kv, self_attention)
 from .config import ModelConfig, torch_dtype
 from .layers import (apply_mlp, apply_norm, dense_init, make_mlp_params,
                      make_norm_params)
 from .mamba import init_mamba_cache, make_mamba_params, mamba_mixer
-
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1, item 3, S7b: MoE, "
-               "cross attention and the encoder are the next model slice)")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} {_NOT_PORTED}")
+from .moe import apply_moe, make_moe_params
 
 
 # ----------------------------------------------------------------------
@@ -48,8 +45,14 @@ def _make_block_params(gen, cfg: ModelConfig, entry, device, lead=(),
         p["attn"] = make_attn_params(gen, cfg, device, lead=lead)
     elif mixer == "mamba":
         p["mamba"] = make_mamba_params(gen, cfg, device, lead=lead)
-    elif mixer in ("xattn", "attn_x"):
-        raise _not_ported(f"the {mixer!r} mixer")
+    elif mixer == "xattn":
+        p["xattn"] = make_attn_params(gen, cfg, device, lead=lead)
+        # tanh(0) = 0: a cross layer starts as the identity
+        p["xgate"] = torch.zeros(lead, dtype=torch.float32, device=device)
+    elif mixer == "attn_x":
+        p["attn"] = make_attn_params(gen, cfg, device, lead=lead)
+        p["ln_x"] = make_norm_params(gen, cfg, device, lead=lead)
+        p["xattn"] = make_attn_params(gen, cfg, device, lead=lead)
     else:
         raise ValueError(mixer)
     if force_mlp:
@@ -58,7 +61,8 @@ def _make_block_params(gen, cfg: ModelConfig, entry, device, lead=(),
         p["ln2"] = make_norm_params(gen, cfg, device, lead=lead)
         p["mlp"] = make_mlp_params(gen, cfg, device, lead=lead)
     elif ffn == "moe":
-        raise _not_ported("the 'moe' FFN")
+        p["ln2"] = make_norm_params(gen, cfg, device, lead=lead)
+        p["moe"] = make_moe_params(gen, cfg, device, lead=lead)
     elif ffn != "none":
         raise ValueError(ffn)
     return p
@@ -70,8 +74,6 @@ def init(gen: Optional[torch.Generator], cfg: ModelConfig,
     ``cfg.param_dtype`` directly on ``device`` (the card unless given; on
     ``"meta"`` nothing is drawn or stored)."""
     dev = resolve_device(device)
-    if cfg.is_enc_dec:
-        raise _not_ported("the encoder")
     params = {"embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model),
                                   cfg.param_dtype, dev, fan_in=cfg.d_model),
               "final_norm": make_norm_params(gen, cfg, dev)}
@@ -85,6 +87,11 @@ def init(gen: Optional[torch.Generator], cfg: ModelConfig,
     params["groups"] = tuple(
         _make_block_params(gen, cfg, e, dev, lead=(cfg.n_groups,))
         for e in cfg.layout)
+    if cfg.is_enc_dec:
+        params["encoder"] = {
+            "groups": (_make_block_params(gen, cfg, ("attn", "mlp"), dev,
+                                          lead=(cfg.n_enc_layers,)),),
+            "final_norm": make_norm_params(gen, cfg, dev)}
     return params
 
 
@@ -117,7 +124,10 @@ def _stack(trees):
 
 def _run_block(x, bp, entry, cfg: ModelConfig, positions, cross_emb,
                cache, cache_index):
-    mixer, ffn = entry
+    """-> (x, new_cache, aux): aux is the MoE FFN's load-balance loss,
+    None for a block without one."""
+    mixer, _ = entry
+    aux = None
     h = apply_norm(x, bp["ln1"], cfg)
     if mixer in ("attn", "swa"):
         window = cfg.window if mixer == "swa" else None
@@ -125,38 +135,83 @@ def _run_block(x, bp, entry, cfg: ModelConfig, positions, cross_emb,
                                       cache=cache, cache_index=cache_index)
     elif mixer == "mamba":
         o, new_cache = mamba_mixer(h, bp["mamba"], cfg, cache, cache_index)
-    elif mixer in ("xattn", "attn_x"):
-        raise _not_ported(f"the {mixer!r} mixer")
+    elif mixer == "xattn":
+        kv = cache["cross"] if cache is not None else \
+            make_cross_kv(cross_emb, bp["xattn"], cfg)
+        o = cross_attention(h, bp["xattn"], cfg, kv)
+        o = o * torch.tanh(bp["xgate"]).to(o.dtype)
+        new_cache = {"cross": kv}
+    elif mixer == "attn_x":
+        o1, kv_self = self_attention(
+            h, bp["attn"], cfg, positions, None,
+            cache=None if cache is None else cache["self"],
+            cache_index=cache_index)
+        x = x + o1
+        h2 = apply_norm(x, bp["ln_x"], cfg)
+        kv = cache["cross"] if cache is not None else \
+            make_cross_kv(cross_emb, bp["xattn"], cfg)
+        o = cross_attention(h2, bp["xattn"], cfg, kv)
+        new_cache = {"self": kv_self, "cross": kv}
     else:
         raise ValueError(mixer)
     x = x + o
-    if "moe" in bp or ffn == "moe":
-        raise _not_ported("the 'moe' FFN")
-    if "mlp" in bp:
+    if "moe" in bp:
+        f, aux = apply_moe(apply_norm(x, bp["ln2"], cfg), bp["moe"], cfg)
+        x = x + f
+    elif "mlp" in bp:
         x = x + apply_mlp(apply_norm(x, bp["ln2"], cfg), bp["mlp"], cfg)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _scan_groups(x, groups, cfg: ModelConfig, positions, cross_emb,
                  cache, cache_index, decode, collect_cache=False):
-    """Run every layout group in order.  decode: the group caches are
-    updated in place and ``cache`` is returned; collect_cache: the
-    forward's caches come back stacked like the params; else None."""
+    """Run every layout group in order.  -> (x, aux, cache): aux sums the
+    MoE losses in fp32; decode: the group caches are updated in place and
+    ``cache`` is returned; collect_cache: the forward's caches come back
+    stacked like the params; else None."""
     collected = [[] for _ in cfg.layout]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.n_groups):
         for li, entry in enumerate(cfg.layout):
             c_in = None if cache is None else _index(cache[li], g)
-            x, nc = _run_block(x, _index(groups[li], g), entry, cfg,
-                               positions, cross_emb, c_in, cache_index)
+            x, nc, a = _run_block(x, _index(groups[li], g), entry, cfg,
+                                  positions, cross_emb, c_in, cache_index)
+            if a is not None:
+                aux = aux + a
             if decode:
                 _write_into(c_in, nc)
             elif collect_cache:
                 collected[li].append(nc)
     if decode:
-        return x, cache
+        return x, aux, cache
     if collect_cache:
-        return x, tuple(_stack(c) for c in collected)
-    return x, None
+        return x, aux, tuple(_stack(c) for c in collected)
+    return x, aux, None
+
+
+# ----------------------------------------------------------------------
+# Encoder (enc-dec archs; non-causal self attention over frame embeddings)
+# ----------------------------------------------------------------------
+
+def _encode(params, cfg: ModelConfig, enc_emb):
+    """enc_emb (B, L, D) -> the encoder's output (B, L, D): per layer,
+    plain ``_sdpa`` under an all-true mask (no rope, no kernel, as in the
+    reference) and the MLP, then the encoder's final norm."""
+    B, L, _ = enc_emb.shape
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mask = torch.ones((B, 1, L, L), dtype=torch.bool, device=enc_emb.device)
+    (stacked,) = params["encoder"]["groups"]
+    x = enc_emb
+    for i in range(cfg.n_enc_layers):
+        bp = _index(stacked, i)
+        h = apply_norm(x, bp["ln1"], cfg)
+        q = (h @ bp["attn"]["wq"]).reshape(B, L, H, dh)
+        k = (h @ bp["attn"]["wk"]).reshape(B, L, K, dh)
+        v = (h @ bp["attn"]["wv"]).reshape(B, L, K, dh)
+        o = _sdpa(q, k, v, mask, cfg.logit_softcap)
+        x = x + o.reshape(B, L, H * dh) @ bp["attn"]["wo"]
+        x = x + apply_mlp(apply_norm(x, bp["ln2"], cfg), bp["mlp"], cfg)
+    return apply_norm(x, params["encoder"]["final_norm"], cfg)
 
 
 # ----------------------------------------------------------------------
@@ -176,26 +231,35 @@ def _embed(params, cfg: ModelConfig, tokens):
 
 def apply(params, cfg: ModelConfig, tokens, *, enc_emb=None, cross_emb=None,
           positions=None, want_cache=False):
-    """Full-sequence forward.  Returns dict(hidden, aux, cache?)."""
-    if cfg.is_enc_dec or enc_emb is not None:
-        raise _not_ported("the encoder")
+    """Full-sequence forward.  Returns dict(hidden, aux, cache?).
+    enc-dec archs take the frame embeddings ``enc_emb`` (B, L, D) through
+    the encoder; VLMs take the patch embeddings ``cross_emb``."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int64,
                                  device=tokens.device).expand(B, S)
     x = _embed(params, cfg, tokens)
+    dt = torch_dtype(cfg.dtype)
+    if cfg.is_enc_dec:
+        if enc_emb is None:
+            raise ValueError(f"{cfg.name}: an enc-dec arch needs enc_emb")
+        cross_emb = _encode(params, cfg, enc_emb.to(dt))
+    elif cross_emb is not None:
+        cross_emb = cross_emb.to(dt)
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     prelude_cache = []
     for bp in params.get("prelude", []):
-        x, nc = _run_block(x, bp, ("attn", "mlp"), cfg, positions, cross_emb,
-                           None, None)
+        x, nc, a = _run_block(x, bp, ("attn", "mlp"), cfg, positions,
+                              cross_emb, None, None)
         prelude_cache.append(nc)
-    x, cache = _scan_groups(x, params["groups"], cfg, positions, cross_emb,
-                            None, None, decode=False,
-                            collect_cache=want_cache)
+        if a is not None:
+            aux_total = aux_total + a
+    x, aux, cache = _scan_groups(x, params["groups"], cfg, positions,
+                                 cross_emb, None, None, decode=False,
+                                 collect_cache=want_cache)
     x = apply_norm(x, params["final_norm"], cfg)
-    out = {"hidden": x,
-           "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    out = {"hidden": x, "aux": aux_total + aux}
     if want_cache:
         out["cache"] = {"prelude": prelude_cache, "groups": cache}
     return out
@@ -241,7 +305,7 @@ def lm_loss(params, cfg: ModelConfig, hidden, targets, mask):
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """batch: {"tokens": (B,S), optional "mask"}."""
+    """batch: {"tokens": (B,S), optional "enc_emb"/"cross_emb"/"mask"}."""
     tokens = batch["tokens"]
     out = apply(params, cfg, tokens, enc_emb=batch.get("enc_emb"),
                 cross_emb=batch.get("cross_emb"))
@@ -259,7 +323,10 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device: DeviceLike = None):
-    """Zero cache matching the layout (group leaves lead with n_groups)."""
+    """Zero cache matching the layout (group leaves lead with n_groups).
+    A cross layer's entry holds its K/V over the ``cfg.cross_len``
+    embeddings, which decode reads and never recomputes: the caller fills
+    them (a prefill's cache, or ``make_cross_kv``)."""
     dev = resolve_device(device)
     K, dh = cfg.n_kv_heads, cfg.head_dim
     dt = torch_dtype(cfg.dtype)
@@ -274,7 +341,13 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         if mixer == "mamba":
             return init_mamba_cache(cfg, batch, dev, lead)
         if mixer in ("xattn", "attn_x"):
-            raise _not_ported(f"the {mixer!r} mixer")
+            shape = lead + (batch, cfg.cross_len, K, dh)
+            cross = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                     "v": torch.zeros(shape, dtype=dt, device=dev)}
+            if mixer == "xattn":
+                return {"cross": cross}
+            return {"self": entry_cache(("attn", None), lead),
+                    "cross": cross}
         raise ValueError(mixer)
 
     cache = {"groups": tuple(entry_cache(e, (cfg.n_groups,))
@@ -296,12 +369,12 @@ def decode_step(params, cfg: ModelConfig, token, cache, cache_index):
     x = _embed(params, cfg, token)
     new_prelude = []
     for bp, pc in zip(params.get("prelude", []), cache.get("prelude", [])):
-        x, nc = _run_block(x, bp, ("attn", "mlp"), cfg, positions, None, pc,
-                           t)
+        x, nc, _ = _run_block(x, bp, ("attn", "mlp"), cfg, positions, None,
+                              pc, t)
         _write_into(pc, nc)
         new_prelude.append(pc)
-    x, new_groups = _scan_groups(x, params["groups"], cfg, positions, None,
-                                 cache["groups"], t, decode=True)
+    x, _, new_groups = _scan_groups(x, params["groups"], cfg, positions,
+                                    None, cache["groups"], t, decode=True)
     x = apply_norm(x, params["final_norm"], cfg)
     new_cache = {"groups": new_groups}
     if new_prelude:

@@ -2,8 +2,10 @@
 schedules, the dict-params forms of DiverseFL's statistics and Eq. 6, the
 tree attack and the batch iterator, each against the JAX reference with
 the reference's draws injected; and a census that every public name of
-the reference's core, data, optim, RSA and small-model modules has its
-counterpart in the port or a named exclusion."""
+the reference's core, data, optim, RSA and small-model modules (and,
+since later slices, its engine, fault, telemetry and sweep modules, the
+zoo's attention, MoE, frontend and model modules and the serving module)
+has its counterpart in the port or a named exclusion."""
 import ast
 import dataclasses
 import importlib
@@ -606,7 +608,8 @@ def test_batch_iterator_matches_the_reference():
 CENSUS = ["core/diversefl", "core/attacks", "core/sample_filter", "core/tee",
           "data/synthetic", "data/partition", "data/pipeline", "optim/sgd",
           "optim/schedules", "fl/rsa", "fl/small_models", "fl/faults",
-          "fl/telemetry", "fl/sweep", "fl/engine"]
+          "fl/telemetry", "fl/sweep", "fl/engine", "models/attention",
+          "models/moe", "models/frontends", "models/model", "launch/serve"]
 # each name the port leaves out, with the ROADMAP item that takes it
 EXCLUDED = {
     "data/synthetic.make_token_stream":
