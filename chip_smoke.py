@@ -143,7 +143,25 @@ Phases (any failure raises and the script exits non-zero):
                [kernels-s4] also times deepseek-moe's and kimi-k2's
                causal heads; [card-vs-cpu-s4] covers all seven SMOKE
                configs
- 11. result  - a capture that reads the card on the host fails by name; a
+ 11. slice 11 (S6a) - the zoo trains through the round engine.
+               [zoo-fl]: model_fl_bench.py's fl-llm-100m (13 x 640, vocab
+               32,000, 100,369,280 params, bf16; S = 32, 4 examples a
+               client) federated by streaming diversefl in blocks of one
+               client, 2 clients, f = 1 under sign_flip, 2 rounds: eager
+               and replaying a captured round, bitwise equal, one host sync
+               each, the fold's launches; ms/round, a profiled run's busy
+               share, peak GiB with remat on and off, the reference's CPU
+               record beside it (BENCH_model_fl.json); h2o-danube-1.8b at
+               its published widths, all 24 layers, 2 eager rounds (peak
+               GiB); similarity_stats and masked_agg_update at
+               (1, 100369280) fp32 against their bounds; a CUDA
+               flash_attention and mamba_scan call under grad refused by
+               name.  [card-vs-cpu-s6a]: the CPU tests' zoo-tiny run on the
+               card and on the CPU from the same draws (bf16 and fp32):
+               keep masks equal every round, C1/C2 but at near-ties, params
+               within the CPU tests' tolerances; ZooModel.grad with remat
+               on == off, bitwise, at zoo-tiny and fl-llm-100m
+ 12. result  - a capture that reads the card on the host fails by name; a
                ``kernels`` JSON line, then ``{"ok": true, ...}`` last
 """
 import contextlib
@@ -184,6 +202,9 @@ from repro_torch.fl import simulator as fl_simulator  # noqa: E402
 from repro_torch.fl.compression import get_codec  # noqa: E402
 from repro_torch.fl.faults import FaultConfig  # noqa: E402
 from repro_torch.fl.rsa import run_rsa  # noqa: E402
+from repro_torch.fl.zoo import (make_zoo_data,  # noqa: E402
+                                make_zoo_federation,
+                                zoo_model as fl_zoo_model)
 from repro_torch.fl.server import (AggregationContext,  # noqa: E402
                                    aggregate)
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -210,7 +231,7 @@ from repro_torch.launch.serve import (make_prefill,  # noqa: E402
 from repro_torch.models import frontends  # noqa: E402
 from repro_torch.models import model as zoo_model  # noqa: E402
 from repro_torch.models import moe as zoo_moe  # noqa: E402
-from repro_torch.optim import inv_sqrt_lr  # noqa: E402
+from repro_torch.optim import constant_lr, inv_sqrt_lr  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -2867,12 +2888,13 @@ def read_trace(prof):
 
 
 def mode_run(model, fed, cfg, mode, engine=None, guard=False, lr0=0.05,
-             profile=False):
+             profile=False, schedule=None):
     """One run of ``cfg`` through ``run_federated_training``: ``mode`` is
     "loop" (the per-round loop), "engine" (the one-sync engine) or
     "graph" (the engine replaying a captured round); ``engine`` reuses a
     built one.  ``guard`` runs it under ``torch.cuda.set_sync_debug_mode(
-    "error")``, which only ``host_sync`` lifts.  Counts are 0 just before
+    "error")``, which only ``host_sync`` lifts.  The rates follow
+    ``schedule`` (default ``inv_sqrt_lr(lr0)``).  Counts are 0 just before
     and read just after.  Returns (history, ms/round, host syncs, launch
     counts, engine, :func:`read_trace` of the run or None)."""
     if mode != "loop" and engine is None:
@@ -2892,9 +2914,10 @@ def mode_run(model, fed, cfg, mode, engine=None, guard=False, lr0=0.05,
         t0 = time.perf_counter()
         try:
             with torch.profiler.record_function("fl_run"):
-                h = run_federated_training(model, fed, cfg, inv_sqrt_lr(lr0),
-                                           use_engine=mode != "loop",
-                                           engine=engine)
+                h = run_federated_training(
+                    model, fed, cfg,
+                    inv_sqrt_lr(lr0) if schedule is None else schedule,
+                    use_engine=mode != "loop", engine=engine)
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode(0)
@@ -3298,6 +3321,340 @@ def phase_sweep(card):
     log(f"[sweep] done ({time.perf_counter() - t0:.1f} s)")
 
 
+# ----------------------------------------------------------------------
+# slice 11 (S6a): the zoo trains through the round engine
+# ----------------------------------------------------------------------
+
+ZOO_SEQ = 32                     # model_fl_bench.py's SEQ
+ZOO_PER_CLIENT = 4               # ... and its per_client
+ZOO_LR = 3e-2                    # ... and its constant rate
+# model_fl_bench.py's FULL_MODEL: 13 x (640, 8/4 heads, ff 2560) + a
+# 32,000 vocab = 100,369,280 params, bf16
+FL_LLM_100M = models.ModelConfig(name="fl-llm-100m", n_layers=13,
+                                 d_model=640, n_heads=8, n_kv_heads=4,
+                                 d_ff=2560, vocab_size=32_000,
+                                 attn_direct_max=ZOO_SEQ)
+# tests/test_model_fl.py's meshless zoo run
+ZOO_TINY = dict(name="zoo-tiny", n_layers=2, d_model=32, n_heads=4,
+                n_kv_heads=2, d_ff=64, vocab_size=64, attn_direct_max=16)
+ZOO_FL_SHAPE = (1, 100_369_280)  # one client's fp32 row of fl-llm-100m
+
+
+def zoo_fl_cfg(n_clients=2, rounds=2, **kw):
+    """model_fl_bench.py's run: streaming diversefl in blocks of one
+    client, f32 codec, l2 = 0, f = 1 under sign_flip, eval at the end."""
+    return FLConfig(**{**dict(
+        n_clients=n_clients, f=1, rounds=rounds, batch_size=2, l2=0.0,
+        aggregator="diversefl", streaming=True, client_chunk=1,
+        eval_every=rounds, compression="f32",
+        attack=AttackConfig(kind="sign_flip"), seed=SEED), **kw})
+
+
+def finite_history(tag, h):
+    vals = [h[k] for k in ("acc", "mask_tpr", "mask_fpr")]
+    if not all(math.isfinite(x) for v in vals for x in v) \
+            or not all(np.isfinite(c).all() for c in h["c1c2"]) \
+            or not all(bool(torch.isfinite(p.float()).all())
+                       for p in h["params"].values()):
+        raise AssertionError(f"{tag}: non-finite metrics or params")
+
+
+def zoo_train(card, tag, model, cfg, fed, mode, engine=None, profile=False):
+    """One guarded run of ``mode`` ("engine" or "graph"): finite, one host
+    sync, the streamed fold's launches (but in the run that captures the
+    graph, whose warm-up round and capture launch besides the replays).
+    -> (history, ms/round, peak GiB above what was allocated before the
+    run, engine, trace)."""
+    capture = mode == "graph" and engine is None
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    h, ms, syncs, counts, engine, tr = mode_run(
+        model, fed, cfg, mode, engine=engine, guard=not profile,
+        schedule=constant_lr(ZOO_LR), profile=profile)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    finite_history(f"{tag} {mode}", h)
+    blocks = -(-cfg.n_selected // cfg.client_chunk)
+    want = stream_counts("diversefl", "f32", cfg.rounds, blocks)
+    if counts != want and not capture:
+        raise AssertionError(f"{tag} {mode}: launches {counts}, expected "
+                             f"{want}")
+    if syncs != 1:
+        raise AssertionError(f"{tag} {mode}: {syncs} host syncs")
+    return h, ms, peak, engine, tr
+
+
+def check_grad_refusal(card):
+    """Repair 2: a CUDA kernel route under grad on an operand that
+    requires grad raises by name (no backward exists)."""
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    q = torch.randn((1, 2, 64, 64), generator=gen, device=DEV,
+                    requires_grad=True)
+    k = torch.randn((1, 2, 64, 64), generator=gen, device=DEV)
+    da = torch.rand((1, 8, 16, 8), generator=gen, device=DEV,
+                    requires_grad=True)
+    dbx = torch.randn((1, 8, 16, 8), generator=gen, device=DEV)
+    c = torch.randn((1, 8, 8), generator=gen, device=DEV)
+    for name, call in (("flash_attention",
+                        lambda: ops.flash_attention_bhsd(q, k, k)),
+                       ("mamba_scan", lambda: ops.mamba_scan_raw(da, dbx, c))):
+        before = ops.launch_counts()[name]
+        with torch.enable_grad():
+            try:
+                call()
+            except ValueError as exc:
+                if name not in str(exc) or "no backward" not in str(exc):
+                    raise
+            else:
+                raise AssertionError(f"{name} on the card under grad did "
+                                     f"not refuse")
+        if ops.launch_counts()[name] != before:
+            raise AssertionError(f"{name} launched before refusing")
+    log(f"[zoo-fl] under torch.enable_grad(), a CUDA flash_attention and a "
+        f"CUDA mamba_scan call on an operand that requires grad raise by "
+        f"name ('... has no backward'), launching nothing [{card}]")
+
+
+def zoo_kernel_rows(card):
+    """The two kernels of the zoo's streamed fold at fl-llm-100m's row,
+    (1, 100,369,280) fp32: each held against its plain version, then
+    timed cold (the inputs alone are 16x the L2) beside the plain version
+    and the library call."""
+    n, d = ZOO_FL_SHAPE
+    gen = torch.Generator(device=DEV).manual_seed(4321)
+    z = torch.randn((n, d), generator=gen, device=DEV)
+    g = z + 0.5 * torch.randn((n, d), generator=gen, device=DEV)
+    err = check_similarity(z, g)
+    rows = {"similarity_stats": time_kernel(
+        card, "similarity_stats", (n, d),
+        (lambda z, g, S: similarity_cuda(z, g),
+         lambda z, g, S: similarity_plain(z, g),
+         lambda z, g, S: torch.bmm(S, S.transpose(1, 2))),
+        (z, g, torch.stack([z, g], dim=1)),
+        bound_ms(2 * n * d * 4 + n * 3 * 4, 6 * n * d), err, 30, 5)}
+    del g
+    torch.cuda.empty_cache()
+    w = torch.full((n,), 0.5, device=DEV)
+    acc = torch.randn((d,), generator=gen, device=DEV)
+    err = check_update(z, w, acc)
+    rows["masked_agg_update"] = time_kernel(
+        card, "masked_agg_update", (n, d),
+        (lambda u, w, acc: masked_agg_update_cuda(u, w, acc),
+         lambda u, w, acc: masked_agg_update_plain(u, w, acc),
+         lambda u, w, acc: torch.addmv(acc, u.T, w)), (z, w, acc),
+        bound_ms(n * d * 4 + n * 4 + 2 * d * 4, 2 * n * d), err, 30, 5)
+    del z, acc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_zoo_fl(card):
+    """fl-llm-100m (model_fl_bench.py's FULL_MODEL, bf16) federated for 2
+    rounds on the engine, eager and replaying a captured round, bitwise
+    equal; a profiled run's busy share; peak memory with remat on and
+    off; h2o-danube-1.8b at its published widths for 2 eager rounds; the
+    two fold kernels at fl-llm-100m's row; the grad refusal."""
+    t0 = time.perf_counter()
+    check_grad_refusal(card)
+    model = fl_zoo_model(FL_LLM_100M, seq_len=ZOO_SEQ)
+    cfg = zoo_fl_cfg()
+    fed = make_zoo_federation(model, cfg, torch.Generator(
+        device=DEV).manual_seed(17 + SEED), per_client=ZOO_PER_CLIENT,
+        n_test=16, device=DEV)
+    n_params = model.param_count()
+    if n_params != 100_369_280:
+        raise AssertionError(f"fl-llm-100m has {n_params} params")
+    tag = "[zoo-fl] fl-llm-100m"
+    res, peak = {}, {}
+    _, _, _, eng, _ = zoo_train(card, tag, model, cfg, fed, "engine")
+    h_eager, res["engine"], peak["engine"], _, _ = zoo_train(
+        card, tag, model, cfg, fed, "engine", engine=eng)
+    _, _, _, geng, _ = zoo_train(card, tag, model, cfg, fed, "graph")
+    h_graph, res["graph"], peak["graph"], _, _ = zoo_train(
+        card, tag, model, cfg, fed, "graph", engine=geng)
+    if not same_run(h_graph, h_eager):
+        raise AssertionError(f"{tag}: the graphed history differs from the "
+                             f"eager one")
+    del geng
+    _, wall, _, _, tr = zoo_train(card, tag, model, cfg, fed, "engine",
+                                  engine=eng, profile=True)
+    busy = tr["busy"] / (wall * cfg.rounds)
+    del eng
+    off = fl_zoo_model(dataclasses.replace(FL_LLM_100M, remat=False),
+                       seq_len=ZOO_SEQ)
+    h_off, ms_off, peak_off, _, _ = zoo_train(card, tag + " remat off", off,
+                                              cfg, fed, "engine")
+    log(f"{tag}: {n_params:,} params bf16, S = {ZOO_SEQ}, {cfg.n_clients} "
+        f"clients, f = 1 (sign_flip), blocks of 1, 2 rounds: engine "
+        f"{res['engine']:.3f} ms/round, graph {res['graph']:.3f} ms/round "
+        f"(bitwise the engine's; 1 host sync each, no other PyTorch-visible "
+        f"sync); device busy {100 * busy:.1f} % of a profiled engine run's "
+        f"wall; peak GiB above the run's start (the federation and what "
+        f"earlier phases hold) remat on {peak['engine']:.3f} (graph run "
+        f"{peak['graph']:.3f}, its pool held from the capture), remat off "
+        f"{peak_off:.3f} ({ms_off:.3f} ms/round); acc {h_eager['acc'][-1]:.4f}, {rates(h_eager)}; "
+        f"launches {nonzero(stream_counts('diversefl', 'f32', 2, 2))} a run "
+        f"[{card}]")
+    bench = json.load(open(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "BENCH_model_fl.json")))
+    log(f"{tag}: the reference's record on the CPU, not the card "
+        f"(BENCH_model_fl.json, XLA:CPU, jax "
+        f"{bench['provenance']['jax_version']}): "
+        f"{bench['temps_mb']['unsharded']} MB of unsharded temps, "
+        f"{bench['rounds_per_sec']['unsharded']:.4f} rounds/s")
+    del fed, h_off
+    torch.cuda.empty_cache()
+
+    # h2o-danube-1.8b at its published widths
+    dcfg = configs.get("h2o-danube-1.8b")
+    dmodel = fl_zoo_model(dcfg, seq_len=ZOO_SEQ)
+    dfed = make_zoo_federation(dmodel, cfg, torch.Generator(
+        device=DEV).manual_seed(17 + SEED), per_client=ZOO_PER_CLIENT,
+        n_test=16, device=DEV)
+    h, ms, pk, _, _ = zoo_train(card, "[zoo-fl] h2o-danube-1.8b", dmodel,
+                                cfg, dfed, "engine")
+    log(f"[zoo-fl] h2o-danube-1.8b: {dmodel.param_count():,} params bf16, "
+        f"all {dcfg.n_layers} layers at d_model {dcfg.d_model}, S = "
+        f"{ZOO_SEQ} (direct attention; window {dcfg.window}): 2 eager rounds "
+        f"{ms:.3f} ms/round (the engine's first run, warm-up included), "
+        f"peak {pk:.3f} GiB above the run's start, the federation's data "
+        f"and enclave held before it (one fp32 (D,) row is "
+        f"{dmodel.param_count() * 4 / 1e9:.2f} GB), acc {h['acc'][-1]:.4f}, "
+        f"{rates(h)} [{card}]")
+    del dfed, h
+    torch.cuda.empty_cache()
+    rows = zoo_kernel_rows(card)
+    log(f"[zoo-fl] {time.perf_counter() - t0:.1f} s [{card}]")
+    return rows
+
+
+def tiny_zoo_run(dev, dtype):
+    """The tiny zoo run of the CPU tests on ``dev`` from fixed draws:
+    data, enclave samples, root set, params and minibatch indices all
+    drawn on the CPU from seeded generators.  -> (per round: the keep
+    mask, the C1·C2 logs and the (N, 3) similarity statistics; the
+    start and final params on the CPU)."""
+    mc = models.ModelConfig(**ZOO_TINY, dtype=dtype, param_dtype=dtype)
+    model = fl_zoo_model(mc, seq_len=8)
+    cfg = FLConfig(n_clients=4, f=1, rounds=4, batch_size=4, l2=0.0,
+                   aggregator="diversefl", streaming=True, stream_shards=1,
+                   eval_every=2, seed=SEED, compression="f32",
+                   attack=AttackConfig(kind="sign_flip"))
+    gen = torch.Generator().manual_seed(5)
+    data, tx, ty = make_zoo_data(gen, model, 4, 16, 32)
+    s = data.sample_size(cfg.sample_frac)
+    eidx = torch.rand((4, 16), generator=gen).argsort(1)[:, :s]
+    ridx = torch.randperm(64, generator=gen)[:max(1, int(cfg.root_frac
+                                                          * 64))]
+    params = model.init(torch.Generator().manual_seed(6), "cpu")
+    bidx = torch.randint(0, 16, (cfg.rounds, 4, cfg.batch_size),
+                         generator=gen)
+    fed = Federation.create(model, data, tx, ty, cfg, device=dev,
+                            enclave_idx=eidx, root_idx=ridx)
+    eng = RoundEngine(model, fed, cfg)
+    p = {k: v.to(dev) for k, v in params.items()}
+    rows, real = [], ops.similarity_stats
+    ops.similarity_stats = lambda z, g: rows.append(real(z, g)) or rows[-1]
+    try:
+        out = []
+        for r in range(cfg.rounds):
+            p, logs = eng.run_segment(p, None, torch.full((1,), 0.05,
+                                                          device=dev),
+                                      draws={"batch_idx": bidx[r:r + 1]})
+            out.append({"mask": logs["mask"].cpu(),
+                        "c1c2": logs["c1c2"].cpu(),
+                        "stats": rows[-1].cpu()})
+    finally:
+        ops.similarity_stats = real
+    return out, params, {k: v.cpu() for k, v in p.items()}
+
+
+NEAR_TIE = 1e-2       # |cos(z, g)| at a C1 tie, relative distance at C2's
+
+
+def criteria_ties(a, b, dfl):
+    """Clients whose C1 sign or C2 pass/fail differ between two logs of
+    one round that are not a near-tie in ``a``'s statistics (the empty
+    list when the criteria agree)."""
+    dot, zz, gg = a["stats"].unbind(1)
+    cos = (dot / (zz * gg).sqrt()).abs()
+    c2 = a["c1c2"].abs()
+    tie2 = ((c2 - dfl.eps2).abs() < NEAR_TIE * dfl.eps2) | \
+        ((c2 - dfl.eps3).abs() < NEAR_TIE * dfl.eps3)
+
+    def passes(x):
+        return (x.abs() > dfl.eps2) & (x.abs() < dfl.eps3)
+    bad = ((a["c1c2"].sign() != b["c1c2"].sign()) & (cos >= NEAR_TIE)) | \
+        ((passes(a["c1c2"]) != passes(b["c1c2"])) & ~tie2)
+    return bad.nonzero().flatten().tolist()
+
+
+def phase_card_vs_cpu_s6a(card):
+    """The tiny zoo run on the card and on the CPU from the same draws, as
+    the CPU tests hold the port against the reference: keep masks equal
+    every round, C1 signs and C2 pass/fail equal but at a near-tie; the
+    params within 3 steps of 2^-7 * max(|card|, |cpu|, the leaf's largest
+    update) in bf16, 1e-5 in fp32; then remat on against off on the
+    card, grads bitwise."""
+    t0 = time.perf_counter()
+    dfl = FLConfig().dfl
+    for dtype, tol in (("bfloat16", 3), ("float32", 1e-5)):
+        card_logs, p0, card_p = tiny_zoo_run(DEV, dtype)
+        cpu_logs, _, cpu_p = tiny_zoo_run("cpu", dtype)
+        flips = 0
+        for r, (a, b) in enumerate(zip(card_logs, cpu_logs)):
+            if not torch.equal(a["mask"], b["mask"]):
+                raise AssertionError(f"[card-vs-cpu-s6a] {dtype} round "
+                                     f"{r + 1}: keep masks differ")
+            bad = criteria_ties(a, b, dfl)
+            if bad or (dtype == "float32" and not torch.equal(
+                    a["c1c2"].sign(), b["c1c2"].sign())):
+                raise AssertionError(f"[card-vs-cpu-s6a] {dtype} round "
+                                     f"{r + 1}: C1/C2 differ off a tie for "
+                                     f"clients {bad}")
+            flips += int((a["c1c2"].sign() != b["c1c2"].sign()).sum())
+        worst = 0.0
+        for k in card_p:
+            a, b = card_p[k].float(), cpu_p[k].float()
+            if dtype == "bfloat16":
+                upd = (b - p0[k].float()).abs().max()
+                step = torch.maximum(torch.maximum(a.abs(), b.abs()),
+                                     upd).clamp_min(1e-30) * 2.0 ** -7
+                gap = float(((a - b).abs() / step).max())
+            else:
+                gap = float((a - b).abs().max())
+            worst = max(worst, gap)
+            if gap > tol:
+                raise AssertionError(f"[card-vs-cpu-s6a] {dtype} {k}: "
+                                     f"params {gap:.3g} apart")
+        log(f"[card-vs-cpu-s6a] zoo-tiny {dtype}: 4 rounds, keep masks "
+            f"equal every round, C1/C2 equal but {flips} C1 sign(s) at "
+            f"near-ties (|cos| < {NEAR_TIE}); params apart at most "
+            f"{worst:.3g} {'steps' if dtype == 'bfloat16' else '(abs)'}")
+    # remat on against off: the grads of one client batch on the card
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    for mc in (models.ModelConfig(**ZOO_TINY), FL_LLM_100M):
+        grads = []
+        for remat in (True, False):
+            m = fl_zoo_model(dataclasses.replace(mc, remat=remat),
+                             seq_len=ZOO_SEQ)
+            p = m.init(torch.Generator(device=DEV).manual_seed(9), DEV)
+            x = torch.randint(0, mc.vocab_size, (1, 2, ZOO_SEQ),
+                              generator=gen.manual_seed(10), device=DEV)
+            y = torch.randint(0, mc.vocab_size, (1, 2),
+                              generator=gen.manual_seed(11), device=DEV)
+            grads.append(m.grad({k: v[None] for k, v in p.items()}, (x, y)))
+            del p
+        same = all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0])
+        if not same:
+            raise AssertionError(f"[card-vs-cpu-s6a] {mc.name}: remat on "
+                                 f"and off give different grads")
+        log(f"[card-vs-cpu-s6a] {mc.name}: ZooModel.grad with remat on == "
+            f"off, bitwise, on the card")
+        del grads
+    torch.cuda.empty_cache()
+    log(f"[card-vs-cpu-s6a] {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def check_capture_failure(card):
     """A round that reads the card on the host cannot be captured: the
     graph engine must raise by name, not fall back to eager rounds.  Run
@@ -3374,6 +3731,10 @@ def main():
     # there; the JSON line keeps [serve]'s, beside its kernels' timings)
     phase_serve_s7b(card)
     phase_card_vs_cpu_s4()
+    # slice 11 (S6a): the zoo trains through the engine; its main path is
+    # the fl-llm-100m runs, whose launches zoo_train asserts
+    phase_zoo_fl(card)
+    phase_card_vs_cpu_s6a(card)
     check_capture_failure(card)
     kernels = []
     for name, meta in KERNEL_META.items():

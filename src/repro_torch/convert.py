@@ -4,10 +4,15 @@ Parameters cross as plain numpy arrays, so this module needs neither
 framework's arrays on the other side: the caller converts the reference's
 params with ``{k: np.asarray(v) for k, v in params.items()}`` (or, for
 the zoo's nested trees, ``jax.tree.map(np.asarray, params)``).
+
+The reference flattens a tree in JAX's leaf order: dict keys sorted at
+every level, tuples and lists in order (:func:`leaf_paths`).  The port's
+trees keep insertion order, so everything that lays a tree out flat (the
+zoo's flat params, checkpoints) goes through :func:`leaf_paths`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,3 +71,61 @@ def tree_to_numpy(tree: Any) -> Any:
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_to_numpy(v) for v in tree)
     return _leaf_to_numpy(tree)
+
+
+# ----------------------------------------------------------------------
+# JAX's leaf order
+# ----------------------------------------------------------------------
+
+def leaf_paths(tree: Any, prefix: Tuple[str, ...] = ()
+               ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """``(path, leaf)`` pairs in JAX's leaf order: a dict's keys sorted,
+    tuples and lists in order, at every level; a path holds the keys and
+    indices as strings."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in leaf_paths(tree[k], prefix + (str(k),))]
+    if isinstance(tree, (tuple, list)):
+        return [pl for i, v in enumerate(tree)
+                for pl in leaf_paths(v, prefix + (str(i),))]
+    return [(prefix, tree)]
+
+
+def unflatten_like(like: Any, leaves: Sequence[Any]) -> Any:
+    """The structure of ``like`` holding ``leaves``, given in JAX's leaf
+    order (the inverse of :func:`leaf_paths`'s leaves)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("unflatten_like: more leaves than the structure "
+                         "holds")
+    return out
+
+
+def flatten_tree(tree: Any) -> Dict[str, Any]:
+    """A nested tree -> a flat ``{key: leaf}`` dict in JAX's leaf order
+    (the leaves themselves, not copies).  A key is ``"<position>:<a/b/c>"``
+    with the position zero-padded, so sorting the keys gives the leaf
+    order, which sorting the paths alone would not (``"10" < "2"``, and
+    ``-`` sorts before ``/``)."""
+    pairs = leaf_paths(tree)
+    w = max(3, len(str(len(pairs) - 1)))
+    return {f"{i:0{w}d}:{'/'.join(path)}": leaf
+            for i, (path, leaf) in enumerate(pairs)}
+
+
+def zoo_params_from_jax(tree: Any, device: DeviceLike = None
+                        ) -> Dict[str, torch.Tensor]:
+    """A reference zoo params tree (numpy leaves, bf16 included) -> the
+    port's flat zoo params (``fl/zoo.ZooModel``): tensors on ``device`` in
+    JAX's leaf order, so the flat update D lines up with the reference's
+    column for column."""
+    return flatten_tree(tree_from_jax(tree, device))

@@ -7,9 +7,10 @@ matrix ``U: (N, D)`` (clients × flattened model dim), fp32.
   - krum        : update of the client closest to its N-f-2 neighbours [8]
   - bulyan      : recursive Krum selection + per-dim trimmed mean [12]
   - resampling  : s_R-fold resample-and-average then Median [24]
-  - fltrust_weights: [26]'s trust scores and fold weights; FLTrust's one
-    body is the registry rule in ``fl/server.py``, which folds them with
-    the weighted-fold kernel
+  - oracle_sgd  : the masked mean over the benign clients
+  - fltrust     : [26]'s trust-weighted mean (``fltrust_weights`` folded
+    by the weighted-fold kernel); the registry rules in ``fl/server.py``
+    call these two
 
 Medians come from a sort along the client axis, averaging the two middle
 rows for even N as ``jnp.median`` does (``torch.median`` returns the lower
@@ -48,6 +49,13 @@ def flatten_updates(updates: Dict[str, torch.Tensor]
 
 
 # ----------------------------------------------------------------------
+
+def oracle_sgd(U: torch.Tensor, benign_mask: torch.Tensor) -> torch.Tensor:
+    """The oracle: Eq. 6's masked mean over the benign clients only (the
+    masked-mean kernel on the card, its plain left fold on the CPU)."""
+    from ..kernels import ops as kops     # ops imports core.diversefl
+    return kops.masked_aggregate(U, benign_mask)
+
 
 def median(U: torch.Tensor) -> torch.Tensor:
     """Coordinate-wise median; the mean of the two middle values for even
@@ -169,3 +177,15 @@ def fltrust_weights(U: torch.Tensor, root_update: torch.Tensor
     ts = torch.relu((Uf @ r) / (un * rn))
     return ts, ts * (rn / un)
 
+
+def fltrust(U: torch.Tensor, root_update: torch.Tensor) -> torch.Tensor:
+    """[26] in weighted-mean form, FLTrust's one body: a_i = TS_i·‖root‖/‖z_i‖
+    folds the rescale into each client's weight, one pass over U
+    accumulates Σ a_i·z_i in client order (the weighted-fold kernel on the
+    card), one division by Σ TS_i finalises."""
+    from ..kernels import ops as kops     # ops imports core.diversefl
+    Uf = U.to(torch.float32)
+    ts, a = fltrust_weights(Uf, root_update)
+    zeros = torch.zeros((U.shape[1],), dtype=torch.float32, device=U.device)
+    s = kops.masked_agg_update(Uf, a, zeros)
+    return s / ts.sum().clamp_min(1e-12)

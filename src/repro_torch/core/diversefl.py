@@ -98,6 +98,19 @@ def criterion_logs(dot, z_sq, g_sq) -> Dict[str, torch.Tensor]:
 # Guiding update (enclave Step 3)
 # ----------------------------------------------------------------------
 
+def sgd_round_once(t: torch.Tensor, lr, g: torch.Tensor) -> torch.Tensor:
+    """One SGD step ``t - lr * g`` computed in fp32 and rounded once to
+    ``t``'s dtype, as the reference's ``(t - lr * g).astype(t.dtype)`` with
+    its fp32 rate does.  PyTorch would keep a bf16 ``lr * g`` in bf16 and
+    round twice; for fp32 params this is the same arithmetic.
+
+    The difference ``θ - θ_E`` of a bf16 run is taken in fp32 (exact for
+    most pairs) and never rounded to bf16: the reference writes it in the
+    params' dtype and casts it to fp32, and XLA fuses the two into one
+    fp32 subtraction, so that is what the reference computes."""
+    return (t.float() - lr * g.float()).to(t.dtype)
+
+
 def guiding_update(params: Params, guide_batch, grad_fn: Callable, lr,
                    E: int = 1) -> Params:
     """Δ̃ = θ - SGD_E(θ; M⁰): E gradient-descent steps on the enclave
@@ -108,8 +121,8 @@ def guiding_update(params: Params, guide_batch, grad_fn: Callable, lr,
     theta = params
     for _ in range(E):
         g = grad_fn(theta, guide_batch)
-        theta = {k: theta[k] - lr * g[k] for k in theta}
-    return {k: (params[k] - theta[k]).to(torch.float32) for k in params}
+        theta = {k: sgd_round_once(theta[k], lr, g[k]) for k in theta}
+    return {k: params[k].float() - theta[k].float() for k in params}
 
 
 # ----------------------------------------------------------------------

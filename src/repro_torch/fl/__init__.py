@@ -20,4 +20,6 @@ from .sweep import SweepCell, SweepSpec, group_cells, structural_key
 from .telemetry import (GENESIS, AuditLog, Recorder, event, export_jsonl,
                         get_recorder, load_jsonl, recording, span,
                         verify_entries)
+from .zoo import (ZooModel, make_zoo_data, make_zoo_federation,
+                  zoo_model)
 from . import metrics, rsa, telemetry

@@ -41,6 +41,13 @@ from .telemetry import AuditLog
 
 DEFAULT_IDENTITY = "diversefl-enclave-v1"
 
+# The masked/weighted-mean family: rules whose delta is a per-client-
+# weighted mean, folded by the masked-agg kernels (0/1 masks for
+# diversefl/oracle/mean, trust-score weights for fltrust).
+# ``FLConfig(use_kernel_agg=True)`` with any other rule is refused, as in
+# the reference.
+KERNEL_AGG_RULES = ("diversefl", "oracle", "mean", "fltrust")
+
 
 # ----------------------------------------------------------------------
 # Aggregator registry
@@ -116,7 +123,7 @@ def _diversefl(U, ctx):
 @register_aggregator("oracle")
 def _oracle(U, ctx):
     mask = ~ctx.byz_mask
-    return kops.masked_aggregate(U, mask), {"mask": mask}
+    return agg.oracle_sgd(U, mask), {"mask": mask}
 
 
 @register_aggregator("mean")
@@ -153,15 +160,9 @@ def _resampling(U, ctx):
 
 @register_aggregator("fltrust", needs_root=True)
 def _fltrust(U, ctx):
-    """[26] in weighted-mean form: a_i = TS_i·‖root‖/‖z_i‖ folds the
-    rescale into each client's weight, one pass over U accumulates
-    Σ a_i·z_i (the CUDA weighted-fold kernel on the card), one division by
-    Σ TS_i finalises."""
-    Uf = U.to(torch.float32)
-    ts, a = agg.fltrust_weights(Uf, ctx.root_update)
-    zeros = torch.zeros((U.shape[1],), dtype=torch.float32, device=U.device)
-    s = kops.masked_agg_update(Uf, a, zeros)
-    return s / ts.sum().clamp_min(1e-12), {}
+    """[26]: ``core/aggregators.fltrust``, the weighted-fold kernel on the
+    card."""
+    return agg.fltrust(U, ctx.root_update), {}
 
 
 # ----------------------------------------------------------------------

@@ -43,7 +43,7 @@ import torch
 from ..core.aggregators import flatten_updates
 from ..core.attacks import (UPDATE_ATTACKS, AttackConfig, attack_update,
                             flip_labels, make_byzantine_mask, poison_backdoor)
-from ..core.diversefl import DiverseFLConfig
+from ..core.diversefl import DiverseFLConfig, sgd_round_once
 from ..data.pipeline import FederatedData
 from ..device import DeviceLike, resolve_device
 from . import telemetry
@@ -54,15 +54,27 @@ from .faults import (FaultConfig, corrupt_updates, draw_faults,
                      validate_cohort_chain)
 from .metrics import (BackdoorEval, comm_stats, make_backdoor_eval,
                       make_eval_fn)
-from .server import AggregationContext, SecureServer, get_aggregator
+from .server import (KERNEL_AGG_RULES, AggregationContext, SecureServer,
+                     available_aggregators, get_aggregator)
 from .small_models import SmallModel
 from .streaming import fallback_reason, get_streaming, stream_aggregate
 
 logger = logging.getLogger(__name__)
 
+# the registered rules' names, as the reference keeps them
+AGGREGATORS = available_aggregators()
+
 
 @dataclasses.dataclass(frozen=True)
 class FLConfig:
+    """A run's knobs, validated as the reference validates them.
+
+    ``use_kernel_stats`` and ``use_kernel_agg`` are the reference's
+    switches onto its Pallas kernels, accepted and refused in the
+    reference's combinations; in the port they choose nothing.  The
+    tensors' device picks the route (``kernels/ops.py``): on the card the
+    statistics and the folds always run the CUDA kernels, whose masked
+    mean (``masked_agg.cu``) is bitwise the left fold of the plain path."""
     n_clients: int = 23
     f: int = 5
     rounds: int = 100
@@ -76,6 +88,8 @@ class FLConfig:
     root_frac: float = 0.01              # FLTrust root dataset fraction
     resample_s: int = 2                  # Resampling s_R
     participation: float = 1.0           # C = ceil(participation * N) <= N
+    use_kernel_stats: bool = False       # the reference's Pallas routes;
+    use_kernel_agg: bool = False         # validated as there, choose nothing
     client_chunk: Optional[int] = None   # clients in flight at once
     streaming: bool = False              # fold each chunk into an O(D)
     #                                      state; non-associative rules
@@ -142,6 +156,20 @@ class FLConfig:
                     f"{k} (= ceil(n_selected {self.n_selected} / "
                     f"client_chunk {self.client_chunk})); pick a "
                     f"client_chunk so the blocks divide evenly across pods")
+        if self.use_kernel_agg and self.aggregator not in KERNEL_AGG_RULES:
+            raise ValueError(
+                f"use_kernel_agg=True requires a masked/weighted-mean "
+                f"family aggregator {KERNEL_AGG_RULES}; {self.aggregator!r} "
+                f"never routes through the fused masked-agg kernel, so the "
+                f"flag would be silently ignored")
+        if (self.streaming and self.use_kernel_stats
+                and not self.use_kernel_agg
+                and self.aggregator == "diversefl"):
+            raise ValueError(
+                "use_kernel_stats=True is unreachable on the streaming "
+                "row-fold path (per-client statistics are computed inline "
+                "during the fold); combine it with use_kernel_agg=True for "
+                "the fused per-block kernel path, or drop the flag")
         if self.donate:
             raise ValueError(
                 "donate=True: the port has no buffer donation; every round "
@@ -152,6 +180,14 @@ class FLConfig:
                 f"compression={self.compression!r} is not a registered "
                 f"codec; available: {available_codecs()} "
                 f"(fl/compression.py)")
+        if (not get_codec(self.compression).lossless
+                and self.use_kernel_agg and not self.streaming):
+            raise ValueError(
+                f"compression={self.compression!r} with use_kernel_agg=True "
+                f"requires streaming=True: the fused dequantize-and-fold "
+                f"kernel IS the streaming block fold — the dense path "
+                f"decodes updates before aggregation, so the kernel flag "
+                f"would silently buy no fusion (DESIGN.md §10)")
         # --- async knobs ------------------------------------------------
         if not isinstance(self.fault, FaultConfig):
             raise ValueError(
@@ -414,15 +450,16 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
 
     def client_update(params, xs, ys, lr):
         """E local SGD steps of c clients at once: xs (c, E, m, ...) ->
-        the client-batched update dict θ - θ_E."""
+        the client-batched update dict θ - θ_E in fp32, each step rounded
+        once to the params' dtype (``sgd_round_once``)."""
         c = xs.shape[0]
         start = {k: v.unsqueeze(0).expand((c,) + tuple(v.shape))
                  for k, v in params.items()}
         theta = start
         for e in range(E):
             g = grad_fn(theta, (xs[:, e], ys[:, e]))
-            theta = {k: theta[k] - lr * g[k] for k in theta}
-        return {k: start[k] - theta[k] for k in start}
+            theta = {k: sgd_round_once(theta[k], lr, g[k]) for k in theta}
+        return {k: start[k].float() - theta[k].float() for k in start}
 
     def apply_update_attacks(U, byz_rows, noise_rows, scen):
         """One per-row attack definition for the dense (C, D) matrix, the
@@ -595,7 +632,10 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
             delta, agg_logs = fed.server.aggregate(cfg.aggregator, U, ctx)
         logs.update(agg_logs)
         step = unravel(delta)
-        new_params = {k: params[k] - step[k] for k in params}
+        # fp32 delta, one rounding to each param's dtype (the identity
+        # for fp32 params), as the reference's (p - d).astype(p.dtype)
+        new_params = {k: (params[k] - step[k]).to(params[k].dtype)
+                      for k in params}
         if lossy:
             return (new_params, resid), logs
         if async_mode:

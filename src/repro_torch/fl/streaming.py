@@ -37,6 +37,7 @@ fp tolerance.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -51,6 +52,8 @@ from .server import AggregationContext
 
 AggState = Tuple[torch.Tensor, torch.Tensor]   # (Σ aᵢuᵢ (D,), Σ bᵢ ())
 ClientCtx = Dict[str, torch.Tensor]            # per-client guide/byz/valid
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)

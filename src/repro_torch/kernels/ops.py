@@ -2,7 +2,10 @@
 
 A CUDA tensor goes to the hand-written CUDA kernel; a CPU tensor goes to
 the kernel's plain PyTorch version.  Nothing here catches a build or
-launch error, and a tensor on any other device raises.
+launch error, and a tensor on any other device raises.  No kernel has a
+backward (nor has the reference's): a CUDA call under grad on an operand
+that requires grad raises by name instead of returning an output that
+autograd would silently treat as a constant.
 """
 from __future__ import annotations
 
@@ -29,9 +32,20 @@ KERNELS = {"similarity_stats": similarity_cuda,
            "mamba_scan": mamba_scan_cuda}
 
 
-def _route(t: torch.Tensor, name: str) -> bool:
-    """True -> launch the CUDA kernel, False -> the plain version."""
+def _route(t: torch.Tensor, name: str, *operands: torch.Tensor) -> bool:
+    """True -> launch the CUDA kernel, False -> the plain version.  ``t``
+    and ``operands`` are the call's tensors.  The gradient check reads
+    host-side flags only, so it never syncs and stays legal under CUDA
+    graph capture."""
     if t.is_cuda:
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (t,) + operands):
+            raise ValueError(
+                f"{name}: the CUDA kernel has no backward, and an operand "
+                f"requires grad under torch.enable_grad(); its output would "
+                f"carry no gradient.  Run the kernel under torch.no_grad() "
+                f"on detached tensors, or take the plain path "
+                f"(cfg.use_kernels=False) for training")
         return True
     if t.device.type == "cpu":
         return False
@@ -41,14 +55,14 @@ def _route(t: torch.Tensor, name: str) -> bool:
 
 def similarity_stats(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """(N, D) x (N, D) -> (N, 3) fp32 [z·g, ‖z‖², ‖g‖²] per client."""
-    if _route(z, "similarity_stats"):
+    if _route(z, "similarity_stats", g):
         return similarity_cuda(z, g)
     return similarity_plain(z, g)
 
 
 def masked_aggregate(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(N, D), (N,) -> (D,) masked mean (Eq. 6); empty mask -> zeros."""
-    if _route(u, "masked_aggregate"):
+    if _route(u, "masked_aggregate", mask):
         return masked_agg_cuda(u, mask)
     return masked_agg_plain(u, mask)
 
@@ -57,7 +71,7 @@ def masked_agg_update(u: torch.Tensor, w: torch.Tensor,
                       acc: torch.Tensor) -> torch.Tensor:
     """(n, D) fp32 or bf16, (n,), (D,) -> a new (D,) ``acc + Σᵢ wᵢuᵢ``
     (fp32 weights, no normalisation; acc is not modified)."""
-    if _route(u, "masked_agg_update"):
+    if _route(u, "masked_agg_update", w, acc):
         return masked_agg_update_cuda(u, w, acc)
     return masked_agg_update_plain(u, w, acc)
 
@@ -68,7 +82,7 @@ def dequant_fold_update(q: torch.Tensor, scale: torch.Tensor,
     """int8 (n, D), fp32 (n, ⌈D/qblock⌉), (n,), (D,) -> a new (D,)
     ``acc + Σᵢ wᵢ·(qᵢ ⊙ scaleᵢ)``: the int8 uplink's fold, decode fused
     (acc is not modified)."""
-    if _route(q, "dequant_fold_update"):
+    if _route(q, "dequant_fold_update", scale, w, acc):
         return dequant_fold_update_cuda(q, scale, w, acc, qblock)
     return dequant_fold_update_plain(q, scale, w, acc, qblock)
 
@@ -101,7 +115,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,H,Sq,dh), k/v (B,K,Sk,dh) -> (B,H,Sq,dh) causal GQA attention
     with an optional sliding window and tanh softcap, written into
     ``out`` when given (any strides, unit stride along dh)."""
-    if _route(q, "flash_attention"):
+    if _route(q, "flash_attention", k, v):
         return flash_attention_cuda(q, k, v, window, softcap, out=out)
     o = flash_attention_plain(q, k, v, window, softcap)
     return o if out is None else out.copy_(o)
@@ -124,7 +138,7 @@ def mamba_scan_raw(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dA, dBx (B,S,di,n), C (B,S,n) fp32 -> (y (B,S,di), final state
     (B,di,n)) of h_t = dA_t·h_{t-1} + dBx_t, y_t = <h_t, C_t>."""
-    if _route(da, "mamba_scan"):
+    if _route(da, "mamba_scan", dbx, c):
         return mamba_scan_cuda(da, dbx, c)
     return mamba_scan_plain(da, dbx, c)
 

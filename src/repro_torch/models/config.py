@@ -9,9 +9,10 @@ group of ``(mixer, ffn)`` pairs; ``n_layers`` must be ``first_k_dense +
 n_groups * len(layout)``.
 
 ``dtype`` and ``param_dtype`` stay strings, as in the reference;
-:func:`torch_dtype` maps them to torch dtypes.  ``remat`` and
-``scan_layers`` are kept for parity and have no effect in the port: they
-are training and compile concerns of the JAX package.
+:func:`torch_dtype` maps them to torch dtypes.  ``remat`` checkpoints
+each layout group when a backward pass will run (``models/model.py``);
+``scan_layers`` is kept for parity and has no effect in the port: it is
+a compile concern of the JAX package.
 """
 from __future__ import annotations
 
@@ -86,7 +87,7 @@ class ModelConfig:
     attn_direct_max: int = 2048             # direct attention for seq <= this
     loss_chunk: int = 2048                  # token chunk of the chunked xent
     tie_embeddings: bool = True
-    remat: bool = True                      # no effect in the port
+    remat: bool = True                      # checkpoint each group under grad
     use_kernels: bool = False               # route hot ops through the CUDA kernels
     scan_layers: bool = True                # no effect in the port
 

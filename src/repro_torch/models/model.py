@@ -13,8 +13,10 @@ Params layout (the reference's pytree, with torch tensors as leaves)::
 
 The reference scans the groups with ``jax.lax.scan`` (and checkpoints the
 body when ``cfg.remat``); the port runs them in a Python loop, indexing
-the stacked leaves.  ``apply``'s ``aux`` is the sum of the MoE layers'
-load-balance losses, which ``loss_fn`` adds to the cross entropy.
+the stacked leaves, and checkpoints each group (each encoder layer) when
+``cfg.remat`` and a backward pass will run.  ``apply``'s ``aux`` is the
+sum of the MoE layers' load-balance losses, which ``loss_fn`` adds to the
+cross entropy.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from .attention import (_sdpa, cross_attention, make_attn_params,
@@ -163,24 +166,57 @@ def _run_block(x, bp, entry, cfg: ModelConfig, positions, cross_emb,
     return x, new_cache, aux
 
 
+def _run_group(x, aux, gp, cfg: ModelConfig, positions, cross_emb, c_ins,
+               cache_index, decode):
+    """One layout group: each block in turn.  -> (x, aux, the blocks' new
+    caches); aux adds each MoE loss in fp32; decode writes each block's
+    cache in place."""
+    new_caches = []
+    for li, entry in enumerate(cfg.layout):
+        x, nc, a = _run_block(x, gp[li], entry, cfg, positions, cross_emb,
+                              c_ins[li], cache_index)
+        if a is not None:
+            aux = aux + a
+        if decode:
+            _write_into(c_ins[li], nc)
+        new_caches.append(nc)
+    return x, aux, new_caches
+
+
+# a forward draws no random numbers, so the recomputation needs no saved
+# RNG state (whose save and restore a CUDA graph capture would refuse)
+_CKPT = dict(use_reentrant=False, preserve_rng_state=False)
+
+
+def _remat(cfg: ModelConfig, decode: bool = False) -> bool:
+    """Checkpoint each group body (``cfg.remat``) only where a backward
+    pass will run: under grad and not decoding, so serving runs exactly
+    as without it."""
+    return cfg.remat and not decode and torch.is_grad_enabled()
+
+
 def _scan_groups(x, groups, cfg: ModelConfig, positions, cross_emb,
                  cache, cache_index, decode, collect_cache=False):
     """Run every layout group in order.  -> (x, aux, cache): aux sums the
     MoE losses in fp32; decode: the group caches are updated in place and
     ``cache`` is returned; collect_cache: the forward's caches come back
-    stacked like the params; else None."""
+    stacked like the params; else None.  With :func:`_remat` each group
+    is one ``torch.utils.checkpoint`` region: its activations are
+    recomputed in the backward pass instead of kept, as the reference's
+    ``jax.checkpoint`` of the scanned group body."""
     collected = [[] for _ in cfg.layout]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = _remat(cfg, decode)
     for g in range(cfg.n_groups):
-        for li, entry in enumerate(cfg.layout):
-            c_in = None if cache is None else _index(cache[li], g)
-            x, nc, a = _run_block(x, _index(groups[li], g), entry, cfg,
-                                  positions, cross_emb, c_in, cache_index)
-            if a is not None:
-                aux = aux + a
-            if decode:
-                _write_into(c_in, nc)
-            elif collect_cache:
+        gp = [_index(p, g) for p in groups]
+        c_ins = [None] * len(groups) if cache is None \
+            else [_index(c, g) for c in cache]
+        args = (x, aux, gp, cfg, positions, cross_emb, c_ins, cache_index,
+                decode)
+        x, aux, new_caches = checkpoint(_run_group, *args, **_CKPT) \
+            if remat else _run_group(*args)
+        if collect_cache:
+            for li, nc in enumerate(new_caches):
                 collected[li].append(nc)
     if decode:
         return x, aux, cache
@@ -193,24 +229,33 @@ def _scan_groups(x, groups, cfg: ModelConfig, positions, cross_emb,
 # Encoder (enc-dec archs; non-causal self attention over frame embeddings)
 # ----------------------------------------------------------------------
 
-def _encode(params, cfg: ModelConfig, enc_emb):
-    """enc_emb (B, L, D) -> the encoder's output (B, L, D): per layer,
-    plain ``_sdpa`` under an all-true mask (no rope, no kernel, as in the
-    reference) and the MLP, then the encoder's final norm."""
-    B, L, _ = enc_emb.shape
+def _encoder_layer(x, bp, cfg: ModelConfig, mask):
+    """One encoder layer: non-causal self attention (plain ``_sdpa``, no
+    rope, no kernel, as in the reference) and the MLP."""
+    B, L, _ = x.shape
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = apply_norm(x, bp["ln1"], cfg)
+    q = (h @ bp["attn"]["wq"]).reshape(B, L, H, dh)
+    k = (h @ bp["attn"]["wk"]).reshape(B, L, K, dh)
+    v = (h @ bp["attn"]["wv"]).reshape(B, L, K, dh)
+    o = _sdpa(q, k, v, mask, cfg.logit_softcap)
+    x = x + o.reshape(B, L, H * dh) @ bp["attn"]["wo"]
+    return x + apply_mlp(apply_norm(x, bp["ln2"], cfg), bp["mlp"], cfg)
+
+
+def _encode(params, cfg: ModelConfig, enc_emb):
+    """enc_emb (B, L, D) -> the encoder's output (B, L, D): every layer
+    (each a checkpoint region under :func:`_remat`), then the encoder's
+    final norm."""
+    B, L, _ = enc_emb.shape
     mask = torch.ones((B, 1, L, L), dtype=torch.bool, device=enc_emb.device)
     (stacked,) = params["encoder"]["groups"]
+    remat = _remat(cfg)
     x = enc_emb
     for i in range(cfg.n_enc_layers):
-        bp = _index(stacked, i)
-        h = apply_norm(x, bp["ln1"], cfg)
-        q = (h @ bp["attn"]["wq"]).reshape(B, L, H, dh)
-        k = (h @ bp["attn"]["wk"]).reshape(B, L, K, dh)
-        v = (h @ bp["attn"]["wv"]).reshape(B, L, K, dh)
-        o = _sdpa(q, k, v, mask, cfg.logit_softcap)
-        x = x + o.reshape(B, L, H * dh) @ bp["attn"]["wo"]
-        x = x + apply_mlp(apply_norm(x, bp["ln2"], cfg), bp["mlp"], cfg)
+        args = (x, _index(stacked, i), cfg, mask)
+        x = checkpoint(_encoder_layer, *args, **_CKPT) \
+            if remat else _encoder_layer(*args)
     return apply_norm(x, params["encoder"]["final_norm"], cfg)
 
 
