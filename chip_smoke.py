@@ -161,7 +161,19 @@ Phases (any failure raises and the script exits non-zero):
                keep masks equal every round, C1/C2 but at near-ties, params
                within the CPU tests' tolerances; ZooModel.grad with remat
                on == off, bitwise, at zoo-tiny and fl-llm-100m
- 12. result  - a capture that reads the card on the host fails by name; a
+ 12. slice 12 (S6b) - the client x model mesh on torch.distributed.
+               [mesh], after [zoo-fl]: a world-1 NCCL group through a FileStore and a 1 x 1
+               ("data", "model") mesh on the card; [zoo-fl]'s fl-llm-100m
+               run through the engine on it, eager and graphed, each
+               bitwise [zoo-fl]'s meshless run with one host sync and the
+               fold's launches (> 0 each, a graph's capture x replays);
+               h2o-danube-1.8b's run likewise; launch.train's round step
+               at h2o-danube-1.8b's widths (S = 512, fp32 updates): kept
+               with z == g, params bitwise (p - z) rounded once, then
+               sign-flipped, dropped, params bitwise unchanged; the
+               launcher CLI (gemma-2b, 3 rounds); 0 collectives over the
+               phase.  ms/round, ms/step and peak GiB
+ 13. result  - a capture that reads the card on the host fails by name; a
                ``kernels`` JSON line, then ``{"ok": true, ...}`` last
 """
 import contextlib
@@ -294,7 +306,13 @@ FLASH_SHAPES = [(2, 32, 8, 8192, 80, 4096, None, "h2o-danube prefill"),
                 (1, 16, 4, 2000, 72, 700, None, "dh 72, window"),
                 (1, 32, 8, 4096, 128, None, None, "minitron-8b heads"),
                 (1, 16, 16, 4096, 128, None, None, "deepseek-moe heads"),
-                (1, 64, 8, 4096, 112, None, None, "kimi-k2 heads")]
+                (1, 64, 8, 4096, 112, None, None, "kimi-k2 heads"),
+                (2, 64, 8, 4096, 128, None, None, "llama-vision heads"),
+                (1, 64, 8, 4096, 128, None, None, "llama-vision fp32 heads")]
+# shapes timed in one dtype only: llama-3.2-vision-90b's prefills launch
+# the bf16 kernel at B = 2 (8 calls) and the fp32 one at B = 1 (4 calls)
+FLASH_ONLY = {"llama-vision heads": torch.bfloat16,
+              "llama-vision fp32 heads": torch.float32}
 # masked_aggregate's client counts at S1's D: both register chunkings (8
 # rows up to N = 8, 32 above) and their ragged ends
 MASKED_NS = (1, 7, 8, 9, 33, 64)
@@ -1352,6 +1370,11 @@ def phase_kernels_s3(card):
                                          + S3_SHAPE]}
 
 
+def on_host(h):
+    """A history with its params copied to the host."""
+    return dict(h, params={k: v.cpu() for k, v in h["params"].items()})
+
+
 def same_run(a, b):
     """Two histories bit for bit: params, accuracy, masks, criterion."""
     return (all(torch.equal(a["params"][k], b["params"][k])
@@ -1653,6 +1676,8 @@ def time_flash(card, gen, dtypes=(torch.bfloat16, torch.float32)):
     timed = {}
     for (B, H, K, S, dh, window, softcap, tag) in FLASH_SHAPES:
         for dtype in dtypes:
+            if FLASH_ONLY.get(tag, dtype) != dtype:
+                continue
             qscale = 6.0 if softcap else 1.0      # scores reach the cap
             q = (torch.randn((B, H, S, dh), generator=gen, device=DEV)
                  * qscale).to(dtype)
@@ -2888,7 +2913,7 @@ def read_trace(prof):
 
 
 def mode_run(model, fed, cfg, mode, engine=None, guard=False, lr0=0.05,
-             profile=False, schedule=None):
+             profile=False, schedule=None, mesh=None):
     """One run of ``cfg`` through ``run_federated_training``: ``mode`` is
     "loop" (the per-round loop), "engine" (the one-sync engine) or
     "graph" (the engine replaying a captured round); ``engine`` reuses a
@@ -2896,9 +2921,11 @@ def mode_run(model, fed, cfg, mode, engine=None, guard=False, lr0=0.05,
     "error")``, which only ``host_sync`` lifts.  The rates follow
     ``schedule`` (default ``inv_sqrt_lr(lr0)``).  Counts are 0 just before
     and read just after.  Returns (history, ms/round, host syncs, launch
-    counts, engine, :func:`read_trace` of the run or None)."""
+    counts, engine, :func:`read_trace` of the run or None).  ``mesh``
+    builds the engine on that ``DeviceMesh``."""
     if mode != "loop" and engine is None:
-        engine = RoundEngine(model, fed, cfg, graph=mode == "graph")
+        engine = RoundEngine(model, fed, cfg, graph=mode == "graph",
+                             mesh=mesh)
     replays0 = engine.replays if engine is not None else 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3359,18 +3386,22 @@ def finite_history(tag, h):
         raise AssertionError(f"{tag}: non-finite metrics or params")
 
 
-def zoo_train(card, tag, model, cfg, fed, mode, engine=None, profile=False):
+def zoo_train(card, tag, model, cfg, fed, mode, engine=None, profile=False,
+              mesh=None, launches=None):
     """One guarded run of ``mode`` ("engine" or "graph"): finite, one host
     sync, the streamed fold's launches (but in the run that captures the
     graph, whose warm-up round and capture launch besides the replays).
-    -> (history, ms/round, peak GiB above what was allocated before the
-    run, engine, trace)."""
+    ``mesh`` builds the engine on it; ``launches`` (a dict) is given the
+    run's launch counts.  -> (history, ms/round, peak GiB above what was
+    allocated before the run, engine, trace)."""
     capture = mode == "graph" and engine is None
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     h, ms, syncs, counts, engine, tr = mode_run(
         model, fed, cfg, mode, engine=engine, guard=not profile,
-        schedule=constant_lr(ZOO_LR), profile=profile)
+        schedule=constant_lr(ZOO_LR), profile=profile, mesh=mesh)
+    if launches is not None:
+        launches.update(counts)
     peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     finite_history(f"{tag} {mode}", h)
     blocks = -(-cfg.n_selected // cfg.client_chunk)
@@ -3501,7 +3532,7 @@ def phase_zoo_fl(card):
         f"{bench['provenance']['jax_version']}): "
         f"{bench['temps_mb']['unsharded']} MB of unsharded temps, "
         f"{bench['rounds_per_sec']['unsharded']:.4f} rounds/s")
-    del fed, h_off
+    del fed, h_off, h_graph
     torch.cuda.empty_cache()
 
     # h2o-danube-1.8b at its published widths
@@ -3520,11 +3551,14 @@ def phase_zoo_fl(card):
         f"and enclave held before it (one fp32 (D,) row is "
         f"{dmodel.param_count() * 4 / 1e9:.2f} GB), acc {h['acc'][-1]:.4f}, "
         f"{rates(h)} [{card}]")
-    del dfed, h
+    del dfed
     torch.cuda.empty_cache()
     rows = zoo_kernel_rows(card)
     log(f"[zoo-fl] {time.perf_counter() - t0:.1f} s [{card}]")
-    return rows
+    # [mesh] holds its 1 x 1 mesh runs against these, bit for bit; their
+    # params wait on the host, out of the way of the card's allocator
+    return {"rows": rows, "h": on_host(h_eager), "ms": res, "peak": peak,
+            "danube": on_host(h), "danube_ms": ms}
 
 
 def tiny_zoo_run(dev, dtype):
@@ -3686,6 +3720,227 @@ def check_capture_failure(card):
         raise AssertionError("[engine] a capture with a host read passed")
 
 
+# ----------------------------------------------------------------------
+# slice 12 (S6b): the client x model mesh on torch.distributed
+# ----------------------------------------------------------------------
+
+STEP_SEQ = 512                   # the round step's tokens a client
+STEP_LR = 0.05
+
+
+def mesh_fl_runs(card, mesh, zoo):
+    """[zoo-fl]'s fl-llm-100m run through the engine on the 1 x 1 mesh,
+    eager and graphed, each bitwise [zoo-fl]'s meshless run; its launches
+    (a graph's: capture x replays)."""
+    model = fl_zoo_model(FL_LLM_100M, seq_len=ZOO_SEQ)
+    cfg = zoo_fl_cfg()
+    fed = make_zoo_federation(model, cfg, torch.Generator(
+        device=DEV).manual_seed(17 + SEED), per_client=ZOO_PER_CLIENT,
+        n_test=16, device=DEV)
+    tag = "[mesh] fl-llm-100m"
+    eng = RoundEngine(model, fed, cfg, mesh=mesh)
+    if (eng.model_shards, eng.batch_mode) != (1, "segment"):
+        raise AssertionError(f"{tag}: model_shards {eng.model_shards}, "
+                             f"batch_mode {eng.batch_mode}")
+    res, peak, launches, hs = {}, {}, {}, {}
+    hs["first"], res["first"], _, _, _ = zoo_train(card, tag, model, cfg,
+                                                   fed, "engine", engine=eng)
+    hs["engine"], res["engine"], peak["engine"], _, _ = zoo_train(
+        card, tag, model, cfg, fed, "engine", engine=eng,
+        launches=launches.setdefault("engine", {}))
+    _, _, _, geng, _ = zoo_train(card, tag, model, cfg, fed, "graph",
+                                 mesh=mesh)
+    hs["graph"], res["graph"], peak["graph"], _, _ = zoo_train(
+        card, tag, model, cfg, fed, "graph", engine=geng,
+        launches=launches.setdefault("graph", {}))
+    mesh_eager_alternated(card, tag, model, cfg, fed, eng, hs)
+    for k, h in hs.items():
+        if not same_run(on_host(h), zoo["h"]):
+            raise AssertionError(f"{tag} {k}: not bitwise [zoo-fl]'s "
+                                 f"meshless run")
+    for mode, c in launches.items():
+        if not (c["similarity_stats"] > 0 and c["masked_agg_update"] > 0):
+            raise AssertionError(f"{tag} {mode}: launches {c}")
+    log(f"{tag}: {model.param_count():,} params bf16 on the 1 x 1 "
+        f"('data', 'model') mesh of a world-1 NCCL group: engine "
+        f"{res['engine']:.3f} ms/round (first run {res['first']:.3f}), "
+        f"graph {res['graph']:.3f} ms/round; [zoo-fl]'s meshless engine "
+        f"{zoo['ms']['engine']:.3f}, graph {zoo['ms']['graph']:.3f} "
+        f"ms/round; each run bitwise [zoo-fl]'s meshless history and "
+        f"params, 1 host sync; peak GiB above the run's start engine "
+        f"{peak['engine']:.3f} ([zoo-fl] {zoo['peak']['engine']:.3f}), "
+        f"graph {peak['graph']:.3f}; launches a run: engine "
+        f"{nonzero(launches['engine'])}, graph (capture x replays) "
+        f"{nonzero(launches['graph'])} [{card}]")
+    del fed, eng, geng, hs
+    torch.cuda.empty_cache()
+    return launches
+
+
+MESH_ALTERNATIONS = 3
+
+
+def mesh_eager_alternated(card, tag, model, cfg, fed, eng, hs):
+    """Eager ms/round of three engines, one run of each in turn,
+    ``MESH_ALTERNATIONS`` times, after a warm run each: meshless with
+    inline batches (as [zoo-fl] runs), meshless with segment batches, and
+    ``eng`` on the 1 x 1 mesh (segment batches).  Interleaved so that host
+    drift falls on all three alike; every run is kept in ``hs`` for the
+    bitwise check."""
+    engines = {"meshless inline": RoundEngine(model, fed, cfg),
+               "meshless segment": RoundEngine(model, fed, cfg,
+                                               batch_mode="segment"),
+               "1 x 1 mesh": eng}
+    for name in ("meshless inline", "meshless segment"):
+        hs[f"{name} warm"], _, _, _, _ = zoo_train(
+            card, tag, model, cfg, fed, "engine", engine=engines[name])
+    out = {name: [] for name in engines}
+    for i in range(MESH_ALTERNATIONS):
+        for name, e in engines.items():
+            hs[f"{name} {i}"], ms, _, _, _ = zoo_train(
+                card, tag, model, cfg, fed, "engine", engine=e)
+            out[name].append(ms)
+    log(f"{tag}: eager ms/round, one run of each engine in turn "
+        f"{MESH_ALTERNATIONS} times: " + "; ".join(
+            f"{name} " + ", ".join(f"{v:.3f}" for v in vs)
+            for name, vs in out.items()) + f" [{card}]")
+
+
+def mesh_danube_run(card, mesh, zoo):
+    """h2o-danube-1.8b at its published widths through the engine on the
+    1 x 1 mesh: bitwise [zoo-fl]'s meshless run at the same seed."""
+    cfg = zoo_fl_cfg()
+    dcfg = configs.get("h2o-danube-1.8b")
+    torch.cuda.empty_cache()            # its peak is 55 GiB above the start
+    dmodel = fl_zoo_model(dcfg, seq_len=ZOO_SEQ)
+    dfed = make_zoo_federation(dmodel, cfg, torch.Generator(
+        device=DEV).manual_seed(17 + SEED), per_client=ZOO_PER_CLIENT,
+        n_test=16, device=DEV)
+    tag = "[mesh] h2o-danube-1.8b"
+    h, ms, pk, _, _ = zoo_train(card, tag, dmodel, cfg, dfed, "engine",
+                                mesh=mesh)
+    if not same_run(on_host(h), zoo["danube"]):
+        raise AssertionError(f"{tag}: not bitwise [zoo-fl]'s meshless run")
+    log(f"{tag}: {dmodel.param_count():,} params bf16, all "
+        f"{dcfg.n_layers} layers, 2 eager rounds on the 1 x 1 mesh "
+        f"{ms:.3f} ms/round ([zoo-fl]'s meshless {zoo['danube_ms']:.3f}; "
+        f"each the engine's first run, warm-up included), peak {pk:.3f} "
+        f"GiB above the run's start; bitwise the meshless history and "
+        f"params [{card}]")
+    del dfed, h
+    torch.cuda.empty_cache()
+
+
+def mesh_round_step(card, mesh):
+    """launch.train.make_fl_round_step at h2o-danube-1.8b's published
+    widths on the 1 x 1 mesh, fp32 updates, S = 512, 2 steps.  The guide
+    batch is the client's own, so z == g: with byz_kind 0 the client is
+    kept and the new params are (p - z) rounded once, bit for bit; with
+    byz_kind 1 (sign flip) it is dropped and the params stay, bit for
+    bit."""
+    from repro_torch.convert import flatten_tree
+    from repro_torch.launch.train import make_fl_round_step
+    dcfg = configs.get("h2o-danube-1.8b")
+    params = models.init(torch.Generator(device=DEV).manual_seed(SEED),
+                         dcfg, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    tokens = torch.randint(0, dcfg.vocab_size, (1, STEP_SEQ), generator=gen,
+                           device=DEV)
+    inputs = {"tokens": tokens, "guide_tokens": tokens[None],
+              "byz_kind": torch.zeros((1,), dtype=torch.int32, device=DEV),
+              "rng": torch.zeros((2,), dtype=torch.int64, device=DEV)}
+    step = make_fl_round_step(dcfg, mesh, lr=STEP_LR, compression="f32")
+    tag = "[mesh] round step h2o-danube-1.8b"
+    times, peaks = [], []
+
+    def timed(p, x):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = step(p, x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        peaks.append((torch.cuda.max_memory_allocated() - held) / 2 ** 30)
+        return out
+
+    p1, m1 = timed(params, inputs)
+    if not (float(m1["kept"]) == 1.0 and m1["mask"].tolist() == [True]
+            and float(m1["c1"][0]) == 1.0 and float(m1["c2"][0]) == 1.0):
+        raise AssertionError(f"{tag}: byz_kind 0 gave {m1}")
+    z, _ = step.client_update(params, {"tokens": tokens})
+    flat0, flat1 = flatten_tree(params), flatten_tree(p1)
+    for k, p in flat0.items():
+        if not torch.equal(flat1[k], (p.float() - z[k]).to(p.dtype)):
+            raise AssertionError(f"{tag}: {k} is not (p - z) rounded once")
+    del z, flat0
+    p2, m2 = timed(p1, dict(inputs, byz_kind=torch.ones(
+        (1,), dtype=torch.int32, device=DEV)))
+    if float(m2["kept"]) != 0.0 or m2["mask"].tolist() != [False]:
+        raise AssertionError(f"{tag}: byz_kind 1 gave {m2}")
+    flat2 = flatten_tree(p2)
+    if not all(torch.equal(flat2[k], v) for k, v in flat1.items()):
+        raise AssertionError(f"{tag}: a dropped client moved the params")
+    log(f"{tag}: {dcfg.n_layers} layers at d_model {dcfg.d_model}, one "
+        f"client of {STEP_SEQ} tokens, fp32 updates: kept with z == g "
+        f"(C1 = C2 = 1), params bitwise (p - z) rounded once to bf16, "
+        f"{times[0]:.3f} ms; sign-flipped and dropped, params bitwise "
+        f"unchanged, {times[1]:.3f} ms; peak GiB above the step's start "
+        f"{peaks[0]:.3f}, {peaks[1]:.3f} [{card}]")
+    del params, p1, p2, flat1, flat2
+    torch.cuda.empty_cache()
+    return times, peaks
+
+
+def phase_mesh(card, zoo):
+    """The client x model mesh (``repro_torch.sharding``,
+    ``launch.mesh``/``train``) on the card: a world-1 NCCL group through a
+    FileStore and a 1 x 1 mesh; [zoo-fl]'s runs through the engine on it,
+    bitwise the meshless ones, with no collective; the round step at
+    h2o-danube-1.8b's widths; the launcher CLI."""
+    import io
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import init_local_group, make_host_mesh
+    from repro_torch.launch.train import main as train_main
+    t0 = time.perf_counter()
+    before = sharding.collective_counts()
+    with tempfile.TemporaryDirectory() as d:
+        init_local_group(0, 1, "nccl", store_path=os.path.join(d, "store"),
+                         timeout=300)
+        try:
+            mesh = make_host_mesh(1, 1)
+            if (mesh.device_type, tuple(mesh.mesh_dim_names),
+                    tuple(mesh.shape)) != ("cuda", ("data", "model"),
+                                           (1, 1)):
+                raise AssertionError(f"[mesh] built {mesh}")
+            launches = mesh_fl_runs(card, mesh, zoo)
+            mesh_danube_run(card, mesh, zoo)
+            mesh_round_step(card, mesh)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                train_main(["--arch", "gemma-2b", "--rounds", "3"])
+            out = buf.getvalue()
+            if "on mesh {'data': 1, 'model': 1} (1 clients)" not in out \
+                    or "round   3 acc=" not in out:
+                raise AssertionError(f"[mesh] launch.train.main printed "
+                                     f"{out!r}")
+            for line in out.strip().splitlines():
+                log(f"[mesh] python -m repro_torch.launch.train --arch "
+                    f"gemma-2b --rounds 3: {line.strip()}")
+        finally:
+            dist.destroy_process_group()
+    after = sharding.collective_counts()
+    if after != before:
+        raise AssertionError(f"[mesh] collectives on the 1 x 1 mesh: "
+                             f"{before} -> {after}")
+    log(f"[mesh] 0 collectives issued ({after}); "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3733,7 +3988,11 @@ def main():
     phase_card_vs_cpu_s4()
     # slice 11 (S6a): the zoo trains through the engine; its main path is
     # the fl-llm-100m runs, whose launches zoo_train asserts
-    phase_zoo_fl(card)
+    zoo = phase_zoo_fl(card)
+    # slice 12 (S6b): the client x model mesh, a 1 x 1 mesh on the card,
+    # held against [zoo-fl]'s runs
+    phase_mesh(card, zoo)
+    del zoo
     phase_card_vs_cpu_s6a(card)
     check_capture_failure(card)
     kernels = []

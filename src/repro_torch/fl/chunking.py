@@ -20,12 +20,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-
-class ShardMismatchError(ValueError):
-    """A requested shard or pod count cannot tile the block axis it
-    partitions.  Raised with the numbers named, so that the caller can
-    pick a ``client_chunk`` whose block count tiles, or let the count
-    clamp."""
+from ..sharding.api import ShardMismatchError  # noqa: F401 (re-exported)
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:

@@ -23,9 +23,15 @@ capture serves every run of the engine whose shapes match (a sweep's
 structural group).  The graph needs a CUDA device, and a capture that
 fails raises: nothing falls back to eager rounds.
 
-The reference's mesh paths (``mesh=``, a model axis, the blocked (ms, L)
-layout and ``sweep_put``) are multi-device work and are refused by name
-(ROADMAP queue 1, item 4: S6).
+``mesh=`` (default: the active ``sharding.get_mesh()``) runs the same
+rounds on a client x model ``DeviceMesh`` (``sharding/api.py``): each data
+rank folds its own client blocks and the partial states are gathered
+(``fl/streaming.py``); on a model axis > 1 every rank holds the whole
+params and the federated state is the rank's row of the blocked (ms, L)
+layout.  A 1 x 1 mesh is the meshless
+run: no collective, bit for bit.  A data-axis mesh is bitwise the
+meshless run with ``stream_shards`` equal to its rank count; a model axis
+> 1 agrees to fp tolerance (the criterion statistics sum shard partials).
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ from typing import Optional
 
 import torch
 
+from ..sharding.api import (all_gather, client_group, get_mesh,
+                            model_shard_count, sweep_put, use_mesh)
 from . import telemetry
 from .faults import init_async_state
 from .metrics import make_eval_fn
@@ -84,19 +92,6 @@ def trace_counter():
     """``with trace_counter() as tc:`` yields a :class:`TraceDelta`
     relative to the entry; the global counters keep counting."""
     yield TraceDelta(dict(TRACE_COUNTS))
-
-
-def _refuse_mesh(mesh, model_shards):
-    if mesh is not None:
-        raise NotImplementedError(
-            "RoundEngine(mesh=...): the port runs on one device; the "
-            "client-axis mesh, the pod tiers and sweep_put are multi-device "
-            "work (ROADMAP queue 1, item 4: S6)")
-    if model_shards != 1:
-        raise NotImplementedError(
-            f"RoundEngine(model_shards={model_shards}): model sharding and "
-            f"the blocked (ms, L) update layout are multi-device work "
-            f"(ROADMAP queue 1, item 4: S6)")
 
 
 def _copy_tree(dst, src):
@@ -168,18 +163,43 @@ class RoundEngine:
     counters show the capture: :data:`TRACE_COUNTS` ``["capture"]``, and
     ``captured_launches`` holds the kernel launches made while capturing,
     which every replay repeats (``replays`` counts them).
+
+    ``mesh`` (a ``DeviceMesh``; default ``sharding.get_mesh()``) runs the
+    rounds on the client x model mesh, every rank of it calling the same
+    methods; ``batch_mode`` then defaults to ``"segment"`` where the
+    config allows it.  ``model_shards`` is the mesh's model-axis size.
+    The first run on a model axis > 1 checks the config
+    (``FLConfig.validate_model_sharding``); params stay whole on every
+    rank.
     """
 
     def __init__(self, model, fed, cfg, *, batch_mode: Optional[str] = None,
-                 mesh=None, model_shards: int = 1, graph: bool = False):
-        _refuse_mesh(mesh, model_shards)
+                 mesh=None, graph: bool = False):
+        from torch.distributed.device_mesh import DeviceMesh
+        self.mesh = mesh if mesh is not None else get_mesh()
+        if self.mesh is not None and not isinstance(self.mesh, DeviceMesh):
+            raise TypeError(
+                f"RoundEngine(mesh=...) takes a torch.distributed "
+                f"DeviceMesh (launch.mesh.make_host_mesh), got "
+                f"{type(self.mesh).__name__}")
+        self.model_shards = model_shard_count(self.mesh)
+        if graph and self.mesh is not None and self.mesh.size() > 1:
+            raise NotImplementedError(
+                f"RoundEngine(graph=True) on a mesh of {self.mesh.size()} "
+                f"ranks: capturing collectives in a CUDA graph is not "
+                f"supported (ROADMAP queue 3); a 1 x 1 mesh captures, or "
+                f"run eager rounds")
+        self._model_sharding_checked = False
         self.model, self.fed, self.cfg = model, fed, cfg
         self.device = fed.device
         self.eval_every = cfg.eval_every
         if self.eval_every < 1:
             raise ValueError(f"eval_every must be >= 1, got "
                              f"{self.eval_every}")
-        batch_mode = "inline" if batch_mode is None else batch_mode
+        if batch_mode is None:
+            batch_mode = "segment" if (self.mesh is not None and not
+                                       _draws_beyond_batches(cfg)) \
+                else "inline"
         if batch_mode not in ("inline", "segment"):
             raise ValueError(f"unknown batch_mode {batch_mode!r}")
         if batch_mode == "segment" and _draws_beyond_batches(cfg):
@@ -212,7 +232,8 @@ class RoundEngine:
     # --- the carry ------------------------------------------------------
     def eval_metrics(self, params, logs):
         """The device metric dict of one eval point."""
-        return self._eval_fn(params, logs)
+        with use_mesh(self.mesh):
+            return self._eval_fn(params, logs)
 
     def init_carry(self, params):
         """The round carry for ``params``: bare params; ``(params,
@@ -236,6 +257,31 @@ class RoundEngine:
         if (self.lossy or self.async_mode) and isinstance(carry, dict):
             return self.init_carry(carry)
         return carry
+
+    def _prepare_carry(self, carry):
+        """:meth:`_ensure_carry`, and on a model axis > 1 the config check
+        (named errors, once)."""
+        carry = self._ensure_carry(carry)
+        if self.model_shards > 1 and not self._model_sharding_checked:
+            self._check_model_sharding(self.carry_params(carry))
+        return carry
+
+    def _check_model_sharding(self, params):
+        leaves = list(params.values())
+        self.cfg.validate_model_sharding(
+            sum(p.numel() for p in leaves), self.model_shards,
+            streaming_fallback=self.streaming_fallback,
+            leaf_sizes=tuple(p.numel() for p in leaves))
+        if self.lossy or self.async_mode:
+            what = (f"compression={self.cfg.compression!r}" if self.lossy
+                    else "async rounds (fault/cohort/staleness knobs)")
+            raise NotImplementedError(
+                f"{what} on a model axis > 1 (model_shards="
+                f"{self.model_shards}): the error-feedback residual plane "
+                f"and the staleness slab are not laid out on the blocked "
+                f"(ms, L) rows yet (ROADMAP queue 3); run it on a mesh "
+                f"whose model axis is 1")
+        self._model_sharding_checked = True
 
     # --- eager rounds ---------------------------------------------------
     def _round(self, carry, lr, generator, scen, draws, i, batch):
@@ -265,14 +311,16 @@ class RoundEngine:
         segment's first round."""
         if scen is None:
             scen = self.default_scenario
-        carry = self._ensure_carry(carry)
+        carry = self._prepare_carry(carry)
         n = int(lrs.shape[0])
-        stack = self._segment_batches(n, generator, draws, 0)
-        logs = None
-        for t in range(n):
-            batch = None if stack is None else (stack[0][t], stack[1][t])
-            carry, logs = self._round(carry, lrs[t], generator, scen,
-                                      draws, t, batch)
+        with use_mesh(self.mesh):
+            stack = self._segment_batches(n, generator, draws, 0)
+            logs = None
+            for t in range(n):
+                batch = None if stack is None else (stack[0][t],
+                                                    stack[1][t])
+                carry, logs = self._round(carry, lrs[t], generator, scen,
+                                          draws, t, batch)
         return carry, logs
 
     @torch.no_grad()
@@ -282,7 +330,13 @@ class RoundEngine:
         Returns ``(params, generator, metrics, eval_rounds)``: ``metrics``
         maps each eval key to an (evals, ...) device tensor (plus
         ``"_tel"`` with telemetry on), ``eval_rounds`` the host list of the
-        rounds each row was evaluated at.  Nothing is read on the host."""
+        rounds each row was evaluated at.  Nothing is read on the host.
+        On a mesh every rank calls it and gets the same full params and
+        metrics."""
+        with use_mesh(self.mesh):
+            return self._run_training(carry, generator, lrs, scen, draws)
+
+    def _run_training(self, carry, generator, lrs, scen, draws):
         if scen is None:
             scen = self.default_scenario
         R = int(lrs.shape[0])
@@ -295,7 +349,7 @@ class RoundEngine:
             params, metrics, tel = self._run_graph(carry, generator, lrs,
                                                    scen, len(segs))
         else:
-            carry = self._ensure_carry(carry)
+            carry = self._prepare_carry(carry)
             bufs, tbufs = _Buffers(len(segs)), _Buffers(R)
             for e, (start, n) in enumerate(segs):
                 stack = self._segment_batches(n, generator, draws, start)
@@ -320,13 +374,35 @@ class RoundEngine:
         other; ``cells`` yields ``(params, generator, lrs, scen)`` per cell.
         Returns ``(params_list, metrics_list, eval_rounds)``: each cell's
         final params and device metric dict (fetch them together with one
-        host sync).  A cell equals its solo ``run_training`` bitwise."""
+        host sync).  A cell equals its solo ``run_training`` bitwise.
+
+        On a mesh the cells are placed over the data ranks
+        (``sharding.sweep_put``): each rank runs its contiguous share, each
+        cell off-mesh, one after another, and the params and metrics are
+        gathered over the client group in cell order, so every rank
+        returns the meshless sweep's results bit for bit.  A group whose
+        size does not tile the data ranks runs whole on every rank."""
+        cells = list(cells)
+        G = len(cells)
+        with use_mesh(self.mesh):
+            mine = sweep_put(torch.arange(G)).tolist()
         params_out, metrics_out, eval_rounds = [], [], None
-        for params, generator, lrs, scen in cells:
-            p, _, m, eval_rounds = self.run_training(params, generator, lrs,
-                                                     scen)
-            params_out.append(p)
-            metrics_out.append(m)
+        with use_mesh(None):
+            for i in mine:
+                params, generator, lrs, scen = cells[i]
+                p, _, m, eval_rounds = self._run_training(
+                    params, generator, lrs, scen, None)
+                params_out.append(p)
+                metrics_out.append(m)
+        if len(mine) == G:
+            return params_out, metrics_out, eval_rounds
+        grp = client_group(self.mesh)
+
+        def gathered(*xs):
+            out = all_gather(torch.stack(xs), grp)
+            return list(out.reshape((G,) + tuple(out.shape[2:])).unbind(0))
+        params_out = _unstack(_zip_map(gathered, params_out), G)
+        metrics_out = _unstack(_zip_map(gathered, metrics_out), G)
         return params_out, metrics_out, eval_rounds
 
     # --- the CUDA graph -------------------------------------------------
@@ -408,6 +484,22 @@ class RoundEngine:
                   for k, v in self.carry_params(g["carry"]).items()}
         tel = {k: v[:R].clone() for k, v in g["tel"].items()}
         return params, bufs.buf, tel
+
+
+def _zip_map(fn, trees):
+    """``fn(*leaves)`` across equally structured dict trees."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _zip_map(fn, [t[k] for t in trees]) for k in first}
+    return fn(*trees)
+
+
+def _unstack(tree, n: int) -> list:
+    """A tree of length-``n`` lists -> ``n`` trees."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return tree
 
 
 def _draws_beyond_batches(cfg) -> Optional[str]:

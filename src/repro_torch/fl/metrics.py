@@ -154,14 +154,27 @@ def make_eval_fn(model, fed, cfg):
 # Communication cost
 # ----------------------------------------------------------------------
 
-def comm_stats(cfg, d: int):
+def comm_stats(cfg, d: int, model_shards: int = 1):
     """Per-round wire traffic of one federated round, in bytes, as host
     ints and floats.  Uplink is what the ``cfg.n_selected`` participating
     clients send, each the codec's encoded size
     (``fl/compression.wire_bytes``: payload plus any scale sidecar);
     downlink is the server broadcasting the fp32 model to them (only the
-    client→server direction is compressed)."""
-    per_client = wire_bytes(get_codec(cfg.compression), d)
+    client→server direction is compressed).
+
+    ``model_shards`` > 1 (a model-sharded mesh) prices what each model
+    shard emits: it encodes its own slice of ``d`` (split as evenly as
+    possible: ``d mod model_shards`` slices hold one element more) with
+    its own qblock padding and scale sidecar, and a client costs the sum
+    over shards.  Pure host arithmetic on ``d``; ``model_shards=1`` is
+    the unsharded price."""
+    codec = get_codec(cfg.compression)
+    if model_shards > 1:
+        base, extra = divmod(d, model_shards)
+        per_client = ((model_shards - extra) * wire_bytes(codec, base)
+                      + extra * wire_bytes(codec, base + 1))
+    else:
+        per_client = wire_bytes(codec, d)
     c = cfg.n_selected
     dense = d * 4
     return {

@@ -46,6 +46,8 @@ from ..core.attacks import (UPDATE_ATTACKS, AttackConfig, attack_update,
 from ..core.diversefl import DiverseFLConfig, sgd_round_once
 from ..data.pipeline import FederatedData
 from ..device import DeviceLike, resolve_device
+from ..sharding.api import (all_gather, blocked_layout, model_group,
+                            model_index, model_shard_count)
 from . import telemetry
 from .chunking import chunked_vmap, tree_leaves, tree_map
 from .compression import available_codecs, encode_with_feedback, get_codec
@@ -252,6 +254,76 @@ class FLConfig:
     def n_selected(self) -> int:
         return max(1, min(self.n_clients,
                           math.ceil(self.participation * self.n_clients)))
+
+    def validate_model_sharding(self, d: int, model_shards: int,
+                                streaming_fallback: Optional[str] = None,
+                                leaf_sizes: Optional[tuple] = None):
+        """Named errors, in the reference's words, for knobs that cannot
+        compose with a model-sharded run.  The engine checks them on its
+        first run, once the flat dim ``d`` (and ``leaf_sizes``) of the
+        params is known.  ``model_shards`` is the mesh's model-axis size
+        (``sharding.model_shard_count``); ``streaming_fallback`` the
+        engine's fallback reason, so a streaming config whose rule fell
+        back to the dense path fails here too.  A no-op when
+        ``model_shards <= 1``."""
+        if model_shards <= 1:
+            return
+        if not self.streaming or streaming_fallback is not None:
+            why = (f"aggregator {self.aggregator!r} cannot stream "
+                   f"({streaming_fallback})" if streaming_fallback
+                   else "streaming=False")
+            raise ValueError(
+                f"model-sharded run (model_shards={model_shards}) requires "
+                f"the streaming fold, but {why}: the dense fallback "
+                f"materializes the full (n_selected={self.n_selected}, "
+                f"D={d}) update matrix — at tensor-parallel model sizes "
+                f"that is exactly the O(N·D) term the streaming AggState "
+                f"exists to remove (DESIGN.md §6, §12).  Use streaming=True "
+                f"with a streaming-capable aggregator "
+                f"(fl/streaming.streaming_rules())")
+        if self.use_kernel_agg or self.use_kernel_stats:
+            flag = "use_kernel_agg" if self.use_kernel_agg \
+                else "use_kernel_stats"
+            raise ValueError(
+                f"{flag}=True cannot compose with a model-sharded run "
+                f"(model_shards={model_shards}): the Pallas fold/stats "
+                f"kernels are single-device programs over an unsharded "
+                f"(chunk, D) block — under GSPMD they would force a "
+                f"cross-model-axis gather of the very matrix the sharding "
+                f"splits.  Drop the kernel flags (the in-fold axis=-1 "
+                f"reductions shard for free)")
+        codec = get_codec(self.compression)
+        if not codec.lossless and leaf_sizes is not None:
+            bad = [s for s in leaf_sizes if s % model_shards]
+            if bad:
+                raise ValueError(
+                    f"compression={self.compression!r} (lossy) on a "
+                    f"model-sharded run needs every parameter tensor to "
+                    f"tile the model axis — the blocked (ms, L) layout "
+                    f"must be pad-free so the (N, D) error-feedback "
+                    f"residual plane reshapes losslessly onto the update "
+                    f"blocks — but {len(bad)} leaf(s) (e.g. size "
+                    f"{bad[0]}) are not multiples of model_shards="
+                    f"{model_shards} (DESIGN.md §12)")
+        if codec.qblock is not None:
+            if d % model_shards:
+                raise ValueError(
+                    f"compression={self.compression!r} on a model-sharded "
+                    f"run needs the flat dim to tile the model axis: "
+                    f"D={d} % model_shards={model_shards} != 0, so the "
+                    f"per-block scale groups would straddle shard "
+                    f"boundaries")
+            local = d // model_shards
+            if local % codec.qblock:
+                raise ValueError(
+                    f"compression={self.compression!r} quantizes in "
+                    f"QBLOCK={codec.qblock} groups along the flat dim, but "
+                    f"the local model shard D/model_shards = {d}/"
+                    f"{model_shards} = {local} is not a multiple of "
+                    f"{codec.qblock}: wire blocks would straddle shard "
+                    f"boundaries and every encode/decode would pay a "
+                    f"cross-model-axis reshard.  Pick a model_shards (or "
+                    f"model size) with QBLOCK | D/model_shards")
 
 
 @dataclasses.dataclass
@@ -531,14 +603,34 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
 
         if stream_entry is not None:
             # ---- Steps 2-5, streaming: fold blocks into an O(D) state ----
+            # on a model axis > 1 this rank folds row s of the blocked
+            # (ms, L) layout: updates, guides and the root are cut to it
+            ms = model_shard_count()
+            layout = blocked_layout(params, ms) if ms > 1 else None
+            srow = model_index()
+            D = sum(v.numel() for v in params.values())
+            if layout is not None and root is not None:
+                root = layout.rows(root.unsqueeze(0), srow)[0]
             ctx = AggregationContext(
                 f=cfg.f, dfl=cfg.dfl, byz_mask=byz, root_update=root,
                 codec=wire, stream_shards=cfg.stream_shards,
                 stream_pods=cfg.pods)
             rule = fed.server.streaming_aggregator(cfg.aggregator, ctx)
-            _, unravel = flatten_updates(
-                {k: v.unsqueeze(0) for k, v in params.items()})
-            d = sum(v.numel() for v in params.values())
+            if layout is None:
+                _, unravel = flatten_updates(
+                    {k: v.unsqueeze(0) for k, v in params.items()})
+                d = D
+            else:
+                unravel, d = layout.unravel, layout.L
+            skip_fn = None
+            if gaussian and noise is None:
+                rows = C if chunk is None or chunk >= C else chunk
+
+                def skip_fn(b):
+                    # a block another data rank folds: its noise is drawn
+                    # and dropped, so the generator stays in step with
+                    # the one-process fold's per-block draws
+                    draw_noise(generator, rows, D)
 
             def block_fn(blk, valid):
                 if async_mode:
@@ -548,18 +640,22 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 U_blk, _ = flatten_updates(client_update(params, xs, ys, lr))
                 if update_attack:
                     if gaussian and noise_b is None:
-                        noise_b = draw_noise(generator, U_blk.shape[0], d)
+                        noise_b = draw_noise(generator, U_blk.shape[0], D)
                     U_blk = apply_update_attacks(U_blk, byz_b, noise_b, scen)
                 if async_mode and fcfg.kind == "intermittent":
                     # a malfunction at the client boundary, after the
                     # attack: it hits whatever the client transmits
                     U_blk = corrupt_updates(U_blk, fault_b, fcfg)
+                if layout is not None:
+                    U_blk = layout.rows(U_blk, srow)
                 ctx_blk = {"byz": byz_b}
                 if async_mode:
                     ctx_blk["live"] = live_b
                 if entry.needs_guides:
-                    ctx_blk["guide"] = fed.server.compute_guides(
+                    G_blk = fed.server.compute_guides(
                         params, grad_fn, lr, E, select=sel_b, codec=wire)
+                    ctx_blk["guide"] = G_blk if layout is None \
+                        else layout.rows(G_blk, srow)
                 if lossy:
                     # the client boundary: only the encoded dict enters
                     # the fold; the new residual rows ride out beside it
@@ -590,8 +686,12 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 args = args + (live, fault_rows)
             out = stream_aggregate(
                 rule, block_fn, args, chunk, d=d, shards=cfg.stream_shards,
-                pods=cfg.pods, block_extra=lossy, extra_state=extra_state)
+                pods=cfg.pods, block_extra=lossy, extra_state=extra_state,
+                skip_fn=skip_fn)
             delta, agg_logs, client_logs = out[:3]
+            if layout is not None:
+                # every model rank's row of the delta -> the (ms, L) layout
+                delta = all_gather(delta, model_group())
             if lossy:
                 resid.index_copy_(0, sel, out[3])
             logs.update(client_logs)
@@ -870,7 +970,11 @@ def run_federated_training(model: SmallModel, fed: Federation, cfg: FLConfig,
                         dev)
     d = sum(v.numel() for v in params.values())
     history = _empty_history()
-    cstats = comm_stats(cfg, d)
+    if use_engine and engine is None:
+        engine = RoundEngine(model, fed, cfg)
+    # the wire stats price the per-shard encoding of a model-sharded run
+    cstats = comm_stats(cfg, d, model_shards=engine.model_shards
+                        if use_engine else 1)
     mode = ("one-sync" if use_engine and not host_eval
             else "host-eval" if use_engine else "per-round")
     run_span = telemetry.span(
@@ -878,8 +982,6 @@ def run_federated_training(model: SmallModel, fed: Federation, cfg: FLConfig,
         aggregator=cfg.aggregator, attack=cfg.attack.kind, d=int(d),
         chunk=cfg.client_chunk, pods=cfg.pods, codec=cfg.compression,
         streaming=bool(cfg.streaming), mode=mode)
-    if use_engine and engine is None:
-        engine = RoundEngine(model, fed, cfg)
     with torch.no_grad(), run_span:
         if use_engine:
             lrs = _lr_vector(lr_schedule, cfg.rounds, dev)

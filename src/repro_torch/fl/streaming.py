@@ -33,6 +33,16 @@ bit for bit at any chunk; padding rows get weight 0.  FLTrust's Σ TSᵢ is
 summed per block, so it agrees to fp tolerance.  ``shards``/``pods`` > 1
 reassociate the merge: per-client logs stay bitwise, the delta agrees to
 fp tolerance.
+
+**Over ranks.**  On a mesh (``sharding/api.py``) the shard and pod
+counts default to the mesh's, and each data rank folds its own
+contiguous groups; the partial states are gathered and merged by
+:func:`tree_merge` in the canonical order, so a run over S data ranks is
+bitwise the one-process fold with ``shards=S``.  On a model axis > 1 each
+rank folds row ``s`` of the blocked ``(ms, L)`` layout, and the
+per-client statistics (the similarity kernel op's rows, or
+:func:`stat_sum`) are shard-local partials summed over the model group:
+those agree with the meshless run to fp tolerance.
 """
 from __future__ import annotations
 
@@ -44,6 +54,9 @@ import torch
 
 from ..core.diversefl import criterion_logs, diversefl_mask
 from ..kernels import ops as kops
+from ..sharding.api import (all_gather, all_reduce, client_group,
+                           client_index, data_shard_count, get_mesh,
+                           model_group, model_shard_count, pod_data_counts)
 from .chunking import (block_valid, group_blocks_2d, pad_to_blocks,
                        resolve_pods, resolve_shards, tree_leaves, tree_map,
                        unblock)
@@ -134,9 +147,23 @@ def fallback_reason(name: str) -> Optional[str]:
 # The weighted-mean family
 # ----------------------------------------------------------------------
 
+def flat_ndim() -> int:
+    """Rank of one client's flattened update under the active layout: 1
+    for the ``(D,)`` vector, 2 for the blocked ``(ms, L)`` matrix of a
+    model axis > 1 (``sharding.flatten_updates_sharded``), of which each
+    model rank holds its row."""
+    return 2 if model_shard_count() > 1 else 1
+
+
 def stat_sum(x: torch.Tensor) -> torch.Tensor:
-    """Per-client sum over the flat model dimension (the last axis)."""
-    return x.sum(-1)
+    """Per-client sum over the flat model dimension (the last axis).  On a
+    model axis > 1 ``x`` holds this rank's row of the blocked layout: the
+    row's sum plus one ``all_reduce`` over the model group, the one
+    cross-model collective of the criterion statistics."""
+    out = x.sum(-1)
+    if model_shard_count() > 1:
+        all_reduce(out, model_group())
+    return out
 
 
 def weighted_mean_rule(weight_fn: Callable, *, floor: float = 1.0,
@@ -197,8 +224,9 @@ def weighted_mean_rule(weight_fn: Callable, *, floor: float = 1.0,
                 a, b = a * vf, b * vf
         return ud, a, b, logs
 
-    def init(d: int, device=None) -> AggState:
-        return (torch.zeros((d,), dtype=torch.float32, device=device),
+    def init(d, device=None) -> AggState:
+        shape = (d,) if isinstance(d, int) else tuple(d)
+        return (torch.zeros(shape, dtype=torch.float32, device=device),
                 torch.zeros((), dtype=torch.float32, device=device))
 
     def update(state, u, ctx):
@@ -259,11 +287,17 @@ def _diversefl_stream(ctx: AggregationContext) -> StreamingAggregator:
     def weight(u, ci):
         # C1/C2 per client against its guiding update.  A block's
         # statistics come from the similarity kernel op, whose rows equal
-        # the dense rule's; one row reduces in place.
+        # the dense rule's; one row reduces in place.  On a model axis > 1
+        # the block's rows are this rank's (L,) row of the blocked layout,
+        # so the kernel's sums are the shard partials: one all_reduce of
+        # the (chunk, 3) stats over the model group completes them.
         g = ci["guide"].to(torch.float32)
         uf = u.to(torch.float32)
         if uf.dim() == 2:
-            dot, zz, gg = kops.similarity_stats(uf, g).unbind(1)
+            st = kops.similarity_stats(uf, g)
+            if model_shard_count() > 1:
+                all_reduce(st, model_group())
+            dot, zz, gg = st.unbind(1)
         else:
             dot, zz, gg = stat_sum(uf * g), stat_sum(uf * uf), stat_sum(g * g)
         keep = diversefl_mask(dot, zz, gg, dfl)
@@ -276,7 +310,7 @@ def _diversefl_stream(ctx: AggregationContext) -> StreamingAggregator:
 @register_streaming("fltrust")
 def _fltrust_stream(ctx: AggregationContext) -> StreamingAggregator:
     root = ctx.root_update.to(torch.float32)
-    rn = torch.sqrt((root * root).sum()) + 1e-12
+    rn = torch.sqrt(stat_sum(root * root)) + 1e-12
 
     def weight(u, ci):
         uf = u.to(torch.float32)
@@ -322,7 +356,8 @@ def stream_aggregate(rule: StreamingAggregator, block_fn: Callable,
                      shards: Optional[int] = None,
                      pods: Optional[int] = None,
                      block_extra: bool = False,
-                     extra_state: Optional[AggState] = None):
+                     extra_state: Optional[AggState] = None,
+                     skip_fn: Optional[Callable[[int], None]] = None):
     """Fold per-client updates into ``rule``'s state one ``chunk``-sized
     block at a time; the (C, D) update matrix never exists.
 
@@ -338,10 +373,21 @@ def stream_aggregate(rule: StreamingAggregator, block_fn: Callable,
     blocks split into P contiguous pod groups and, within each, S
     contiguous shard groups; each group is folded from ``init`` by the
     same left fold, the S partials of a pod are combined by
-    :func:`tree_merge`, then the P pod states.  ``None`` means 1 (the
-    port runs on one device); a shard count is clamped to a divisor of
-    the block count, an explicit pod count that does not divide it
-    raises.  S = P = 1 is the sequential sweep.
+    :func:`tree_merge`, then the P pod states.  ``None`` takes the active
+    mesh's counts (1 off-mesh): its pod axis for P, and for S the data
+    ranks per pod (or all of them when P = 1).  A shard count is clamped
+    to a divisor of the block count, an explicit pod count that does not
+    divide it raises.  S = P = 1 is the sequential sweep.
+
+    On a mesh whose R data ranks tile the P·S groups, rank r folds the
+    contiguous groups [r·G/R, (r+1)·G/R) alone; the partial states, the
+    logs and the extras are gathered over the client group in group
+    order, so the result is bitwise the one-process fold.  Otherwise
+    every rank folds every group (no collective).  ``skip_fn(b)``, where
+    given, is called for each block ``b`` the rank does not fold, in block
+    order around its own (those before it first, those after it last), so
+    a ``block_fn`` that draws from a generator block by block stays in
+    step with the one-process fold.
 
     ``block_extra=True``: ``block_fn`` returns a third element, a
     (chunk, ...) pytree that rides out of the fold beside the logs (the
@@ -361,9 +407,22 @@ def stream_aggregate(rule: StreamingAggregator, block_fn: Callable,
     chunk = C if chunk is None or chunk >= C else chunk
     blocks, k, _ = pad_to_blocks(args, chunk)
     valid = block_valid(k, chunk, C, device)
-    P = resolve_pods(pods, k)
-    S = resolve_shards(shards if shards is not None else 1, k // P)
-    logs_out, extra_out = _Stack(k), _Stack(k)
+    mesh = get_mesh()
+    mesh_pods, mesh_data = pod_data_counts(mesh)
+    P = resolve_pods(pods, k, auto=mesh_pods)
+    S = resolve_shards(shards if shards is not None else
+                       (mesh_data if P > 1 else data_shard_count(mesh)),
+                       k // P)
+    # group ids: (P·S, k / (P·S)) block indices, pod-major and contiguous
+    groups = list(group_blocks_2d(torch.arange(k), k, P, S).flatten(0, 1))
+    G, R = P * S, data_shard_count(mesh)
+    spread = R > 1 and G % R == 0
+    if spread:
+        r = client_index(mesh)
+        groups = groups[r * G // R:(r + 1) * G // R]
+    b0 = int(groups[0][0])
+    nb = sum(len(g) for g in groups)
+    logs_out, extra_out = _Stack(nb), _Stack(nb)
 
     def fold(ids) -> AggState:
         state = rule.init(d, device)
@@ -371,23 +430,41 @@ def stream_aggregate(rule: StreamingAggregator, block_fn: Callable,
             out = block_fn(tree_map(lambda x, b=b: x[b], blocks), valid[b])
             U_blk, ctx_blk = out[0], dict(out[1], valid=valid[b])
             state, logs = rule.update_block(state, U_blk, ctx_blk)
-            logs_out.put(b, logs)
+            logs_out.put(b - b0, logs)
             if block_extra:
-                extra_out.put(b, out[2])
+                extra_out.put(b - b0, out[2])
         return state
 
-    # group ids: (P, S, k / (P·S)) block indices, pod-major and contiguous
-    ids = group_blocks_2d(torch.arange(k), k, P, S)
-    pod_states = [tree_merge(rule.merge, [fold(g) for g in pod])
-                  for pod in ids]
+    skip = spread and skip_fn is not None
+    for b in range(b0) if skip else ():
+        skip_fn(b)
+    states = [fold(g) for g in groups]
+    for b in range(b0 + nb, k) if skip else ():
+        skip_fn(b)
+    logs_buf, extra_buf = logs_out.buf, extra_out.buf
+    if spread:
+        # this rank's partial states, logs and extras -> every rank's, in
+        # group (= block) order
+        grp = client_group(mesh)
+
+        def gathered(x):
+            out = all_gather(x, grp)
+            return out.reshape((out.shape[0] * out.shape[1],)
+                               + tuple(out.shape[2:]))
+        stacked = [gathered(torch.stack(leaf)) for leaf in zip(*states)]
+        states = [tuple(leaf[i] for leaf in stacked) for i in range(G)]
+        logs_buf = tree_map(gathered, logs_buf)
+        extra_buf = tree_map(gathered, extra_buf)
+    pod_states = [tree_merge(rule.merge, states[p * S:(p + 1) * S])
+                  for p in range(P)]
     state = tree_merge(rule.merge, pod_states)
     if extra_state is not None:
         # one canonical trailing merge, part of the fixed association
         state = rule.merge(state, extra_state)
     delta, agg_logs = rule.finalize(state)
-    client_logs = unblock(logs_out.buf, k, chunk, C)
+    client_logs = unblock(logs_buf, k, chunk, C)
     if block_extra:
         return (delta, agg_logs, client_logs,
-                unblock(extra_out.buf, k, chunk, C))
+                unblock(extra_buf, k, chunk, C))
     return delta, agg_logs, client_logs
 

@@ -1,18 +1,20 @@
 """Serving: the batched prefill forward and one greedy decode step
 against the KV/SSM cache.  The counterpart of ``repro/launch/serve.py``.
 
-The reference jits each function under a mesh; the port runs eagerly on
-one card (sharding is slice S6), so the functions take no mesh.  Each
-runs under ``torch.inference_mode()``.
+Each takes the reference's ``mesh`` (a ``DeviceMesh`` or None) and runs
+under ``sharding.use_mesh(mesh)``: every rank of the mesh calls it with
+the same arguments, the params whole, and gets the meshless result.
+Each runs under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import models
+from ..sharding import use_mesh
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, mesh=None, donate_cache: bool = True):
     """serve_step(params, token (B,1), cache, cache_index)
        -> (next_token (B,1) int32, new_cache).
 
@@ -20,18 +22,22 @@ def make_serve_step(cfg):
     is updated IN PLACE (the KV entries at ``cache_index``, the SSM and
     conv states) and new_cache holds the same tensors: the reference
     donates the cache to this step (``donate_argnums=(2,)``), so no
-    caller reads its old contents."""
+    caller reads its old contents.  ``donate_cache=False`` updates a copy
+    and leaves the caller's cache untouched."""
 
     @torch.inference_mode()
     def serve_fn(params, token, cache, cache_index):
-        lg, new_cache = models.decode_step(params, cfg, token, cache,
-                                           cache_index)
+        if not donate_cache:
+            cache = _clone(cache)
+        with use_mesh(mesh):
+            lg, new_cache = models.decode_step(params, cfg, token, cache,
+                                               cache_index)
         return torch.argmax(lg, dim=-1).to(torch.int32), new_cache
 
     return serve_fn
 
 
-def make_prefill(cfg):
+def make_prefill(cfg, mesh=None):
     """prefill(params, tokens (B,S), [enc_emb | cross_emb]) ->
     (last-position logits (B,1,V), cache).  The cache is the forward's:
     K/V of every position for the attention layers, the conv inputs and
@@ -41,15 +47,16 @@ def make_prefill(cfg):
 
     @torch.inference_mode()
     def prefill_fn(params, tokens, enc_emb=None, cross_emb=None):
-        out = models.apply(params, cfg, tokens, enc_emb=enc_emb,
-                           cross_emb=cross_emb, want_cache=True)
-        return models.logits(params, cfg, out["hidden"][:, -1:, :]), \
-            out["cache"]
+        with use_mesh(mesh):
+            out = models.apply(params, cfg, tokens, enc_emb=enc_emb,
+                               cross_emb=cross_emb, want_cache=True)
+            return models.logits(params, cfg, out["hidden"][:, -1:, :]), \
+                out["cache"]
 
     return prefill_fn
 
 
-def make_forward(cfg):
+def make_forward(cfg, mesh=None):
     """forward(params, tokens (B,S), [enc_emb | cross_emb]) -> the mean
     next-token loss of the full-sequence forward plus the MoE layers'
     load-balance losses (fp32 scalar)."""
@@ -61,6 +68,15 @@ def make_forward(cfg):
             batch["enc_emb"] = enc_emb
         if cross_emb is not None:
             batch["cross_emb"] = cross_emb
-        return models.loss_fn(params, cfg, batch)
+        with use_mesh(mesh):
+            return models.loss_fn(params, cfg, batch)
 
     return fwd
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone()

@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from ..sharding.api import shard
 from .config import ModelConfig
 from .layers import dense_init
 
@@ -129,6 +130,7 @@ def self_attention(x, p, cfg: ModelConfig, positions, window=None,
     B, S, _ = x.shape
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, dh)
+    q = shard(q, (None, None, "model", None))
     k = (x @ p["wk"]).reshape(B, S, K, dh)
     v = (x @ p["wv"]).reshape(B, S, K, dh)
     k = rope(k, positions, cfg.rope_theta)
@@ -182,6 +184,7 @@ def cross_attention(x, p, cfg: ModelConfig, cross_kv):
     B, S, _ = x.shape
     H, dh = cfg.n_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, dh)
+    q = shard(q, (None, None, "model", None))
     L = cross_kv["k"].shape[1]
     mask = torch.ones((B, 1, S, L), dtype=torch.bool, device=x.device)
     o = _sdpa(q, cross_kv["k"], cross_kv["v"], mask, cfg.logit_softcap)

@@ -16,6 +16,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..sharding.api import shard
 from .config import ModelConfig, torch_dtype
 
 
@@ -114,7 +115,7 @@ def make_mlp_params(gen, cfg: ModelConfig, device, d_ff=None, lead=()):
 
 
 def apply_mlp(x, p, cfg: ModelConfig):
-    up = x @ p["w_up"]
+    up = shard(x @ p["w_up"], (None, None, "model"))
     if "w_gate" in p:
         h = activation(x @ p["w_gate"], cfg.activation) * up
     else:

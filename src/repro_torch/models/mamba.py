@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding.api import shard
 from .config import ModelConfig, torch_dtype
 from .layers import _const, _fill, dense_init
 
@@ -125,7 +126,7 @@ def mamba_mixer(x, p, cfg: ModelConfig, cache=None, cache_index=None):
     """
     B, S, _ = x.shape
     dc = cfg.ssm_conv
-    xz = x @ p["in_proj"]
+    xz = shard(x @ p["in_proj"], (None, None, "model"))
     xp, z = torch.chunk(xz, 2, dim=-1)
 
     if cache is None:

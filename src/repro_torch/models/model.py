@@ -27,6 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..sharding.api import shard
 from .attention import (_sdpa, cross_attention, make_attn_params,
                         make_cross_kv, self_attention)
 from .config import ModelConfig, torch_dtype
@@ -342,7 +343,8 @@ def lm_loss(params, cfg: ModelConfig, hidden, targets, mask):
     Q = min(cfg.loss_chunk, T)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s0 in range(0, T, Q):
-        lg = _mask_pad_logits(h[s0:s0 + Q].float() @ w, cfg)
+        lg = _mask_pad_logits(shard(h[s0:s0 + Q].float() @ w,
+                                    (None, "model")), cfg)
         lse = torch.logsumexp(lg, dim=-1)
         correct = torch.gather(lg, 1, t[s0:s0 + Q, None])[:, 0]
         total = total + torch.sum((lse - correct) * m[s0:s0 + Q])
@@ -421,7 +423,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, cache_index):
     x, _, new_groups = _scan_groups(x, params["groups"], cfg, positions,
                                     None, cache["groups"], t, decode=True)
     x = apply_norm(x, params["final_norm"], cfg)
+    lg = shard(logits(params, cfg, x), (None, None, "model"))
     new_cache = {"groups": new_groups}
     if new_prelude:
         new_cache["prelude"] = new_prelude
-    return logits(params, cfg, x), new_cache
+    return lg, new_cache

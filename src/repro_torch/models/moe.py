@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.api import shard
 from .config import ModelConfig
 from .layers import activation, apply_mlp, dense_init, gated, make_mlp_params
 
@@ -96,6 +97,7 @@ def apply_moe(x: torch.Tensor, p, cfg: ModelConfig):
 
     xf_pad = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
     h = xf_pad[slot_tok[:E * C]].reshape(E, C, D)             # gather
+    h = shard(h, ("model", None, None))
 
     up = torch.bmm(h, p["routed_up"])
     if "routed_gate" in p:
@@ -103,7 +105,7 @@ def apply_moe(x: torch.Tensor, p, cfg: ModelConfig):
                             cfg.activation) * up
     else:
         hidden = activation(up, cfg.activation)
-    y = torch.bmm(hidden, p["routed_down"])
+    y = shard(torch.bmm(hidden, p["routed_down"]), ("model", None, None))
 
     contrib = y.reshape(E * C, D) * slot_gate[:E * C, None].to(y.dtype)
     contrib = torch.cat([contrib, contrib.new_zeros((1, D))], dim=0)

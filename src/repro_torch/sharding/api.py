@@ -1,0 +1,653 @@
+"""Sharding on ``torch.distributed``: the client x model mesh.
+
+The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with axes
+``("data", "model")`` (one pod) or ``("pod", "data", "model")``.  FL
+clients live on the (pod, data) axes, pod-major: client range ``[c·C/R,
+(c+1)·C/R)`` of ``C`` belongs to the rank whose flat (pod, data) index is
+``c`` of ``R``, the layout the reference's ``("pod", "data")`` placement
+gives.  Each rank holds its own block of every client-stacked quantity;
+off-mesh every helper is the identity.
+
+On the model axis the parameters stay whole and replicated on every rank,
+so every rank computes the same client gradient as a meshless run, bit
+for bit, and no model op needs a sharding rule.  Only the federated state
+is model-sharded: the updates, the guides, the fold's AggState and the
+round delta, in the blocked ``(ms, L)`` layout of
+:func:`flatten_updates_sharded`, of which model rank ``s`` keeps row
+``s``.  That is where the O(D) state of a round lives; a rank needs the
+whole params, the whole client gradient and the whole delta at the
+round's peak anyway, so tiles of the params at rest would save no peak
+memory.  :func:`shard` therefore only records its hint, and
+:func:`place_params`/:func:`shard_params` are the identity.
+
+Every collective the port issues goes through :func:`all_reduce` or
+:func:`all_gather` here, which count it in :data:`COLLECTIVES`: a run on a
+trivial mesh (1 x 1) issues none.  A failed collective raises; nothing
+catches it.
+
+Specs are tuples with the reference's ``PartitionSpec`` entries: an axis
+name, a tuple of names, or ``None`` per dim (``()`` replicates).
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import math
+import re
+import threading
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from ..convert import leaf_paths, unflatten_like
+
+MODEL_AXIS = "model"
+POD_AXIS = "pod"
+DATA_AXES = ("pod", "data")  # whichever exist in the active mesh
+
+_state = threading.local()
+
+
+class ShardMismatchError(ValueError):
+    """A requested shard or pod count cannot tile the axis it partitions.
+
+    Raised with the offending numbers named (count, block count, the
+    chunking that produced it), so that the caller can pick a
+    ``client_chunk`` whose block count tiles, or drop the forced count and
+    let the mesh-derived value clamp."""
+
+
+def get_mesh():
+    return getattr(_state, "mesh", None)
+
+
+def set_mesh(mesh) -> None:
+    _state.mesh = mesh
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    prev = get_mesh()
+    set_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        set_mesh(prev)
+
+
+# ----------------------------------------------------------------------
+# Counted collectives
+# ----------------------------------------------------------------------
+
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
+
+
+def collective_counts() -> dict:
+    """A snapshot of :data:`COLLECTIVES`."""
+    return dict(COLLECTIVES)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """SUM-reduce ``x`` in place over ``group``; returns ``x``."""
+    COLLECTIVES["all_reduce"] += 1
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` of every rank of ``group``, stacked in group rank order:
+    ``(group size, *x.shape)``.  Booleans travel as uint8."""
+    COLLECTIVES["all_gather"] += 1
+    src = x.contiguous()
+    if src.dtype == torch.bool:
+        src = src.to(torch.uint8)
+    out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, src, group=group)
+    out = torch.stack(out)
+    return out.bool() if x.dtype == torch.bool else out
+
+
+# ----------------------------------------------------------------------
+# Mesh geometry
+# ----------------------------------------------------------------------
+
+def _axis_sizes(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _coords(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def _names(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _flat_index(mesh, names) -> tuple:
+    """(this rank's pod-major flat index over ``names``, their size)."""
+    sizes, coords = _axis_sizes(mesh), _coords(mesh)
+    idx, size = 0, 1
+    for n in names:
+        idx, size = idx * sizes[n] + coords[n], size * sizes[n]
+    return idx, size
+
+
+def _client_axes_in(mesh) -> tuple:
+    return tuple(a for a in DATA_AXES if a in mesh.mesh_dim_names)
+
+
+def _client_axis_size(mesh) -> int:
+    sizes = _axis_sizes(mesh)
+    return math.prod(sizes[a] for a in _client_axes_in(mesh))
+
+
+_CLIENT_GROUPS = {}
+
+
+def client_group(mesh=None):
+    """The process group over this rank's client axes (pod x data)."""
+    mesh = mesh if mesh is not None else get_mesh()
+    caxes = _client_axes_in(mesh)
+    if len(caxes) == 1:
+        return mesh.get_group(caxes[0])
+    if mesh not in _CLIENT_GROUPS:
+        _CLIENT_GROUPS[mesh] = mesh[caxes]._flatten().get_group()
+    return _CLIENT_GROUPS[mesh]
+
+
+def model_group(mesh=None):
+    """The process group over this rank's model axis."""
+    mesh = mesh if mesh is not None else get_mesh()
+    return mesh.get_group(MODEL_AXIS)
+
+
+def client_index(mesh=None) -> int:
+    """This rank's pod-major flat index over the client axes (0 off-mesh)."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if mesh is None or not _client_axes_in(mesh):
+        return 0
+    return _flat_index(mesh, _client_axes_in(mesh))[0]
+
+
+def model_index(mesh=None) -> int:
+    """This rank's coordinate on the model axis (0 off-mesh)."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if mesh is None or MODEL_AXIS not in mesh.mesh_dim_names:
+        return 0
+    return _coords(mesh)[MODEL_AXIS]
+
+
+def _tiling_spec(shape, spec, mesh) -> Optional[tuple]:
+    """Drop every spec entry whose dim does not tile its mesh axes; None
+    when nothing survives (the degrade-gracefully contract, per dim)."""
+    sizes = _axis_sizes(mesh)
+    out, any_named = [], False
+    for dim, name in zip(shape, spec):
+        if name is None or dim % math.prod(sizes[n] for n in _names(name)):
+            out.append(None)
+        else:
+            out.append(name)
+            any_named = True
+    return tuple(out) if any_named else None
+
+
+def _local(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec`` (every named dim tiles)."""
+    for dim, name in enumerate(spec):
+        if name is None:
+            continue
+        idx, size = _flat_index(mesh, _names(name))
+        n = x.shape[dim] // size
+        x = x.narrow(dim, idx * n, n)
+    return x
+
+
+SHARD_HINTS = collections.Counter()
+
+
+def shard(x, spec):
+    """Record the reference's model-axis hint for ``x`` and return ``x``.
+
+    Every rank holds the whole params (module docstring) and computes
+    activations from them, so the hint places nothing; it is
+    counted in :data:`SHARD_HINTS` when a model axis > 1 is active and
+    ``x`` tiles it.  A no-op without a mesh, on a model axis of 1, and
+    where a dim does not tile."""
+    mesh = get_mesh()
+    if mesh is None or model_shard_count(mesh) <= 1:
+        return x
+    sizes = _axis_sizes(mesh)
+    for dim, name in zip(x.shape, spec):
+        if name is not None and dim % math.prod(sizes[n]
+                                                for n in _names(name)):
+            return x
+    SHARD_HINTS[tuple(spec)] += 1
+    return x
+
+
+# ----------------------------------------------------------------------
+# Client-axis sharding (the federated round engine's contract)
+# ----------------------------------------------------------------------
+
+def client_spec(ndim: int, axis: int = 0, mesh=None):
+    """Spec placing dim ``axis`` (the client axis) on the mesh's data
+    axes; None without a mesh or data axes.  On a multi-pod mesh it names
+    the ``("pod", "data")`` pair, pod-major: contiguous client ranges per
+    pod (the two-tier fold's pod groups are the same ranges)."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if mesh is None:
+        return None
+    caxes = _client_axes_in(mesh)
+    if not caxes:
+        return None
+    spec = [None] * ndim
+    spec[axis] = caxes if len(caxes) > 1 else caxes[0]
+    return tuple(spec)
+
+
+def client_sharding(ndim: int, axis: int = 0, mesh=None):
+    """The ``DTensor`` placements of a client-stacked array, one per mesh
+    dim: ``Shard(axis)`` on the client axes (nested pod-major), replicated
+    on ``model``.  None when inapplicable."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = mesh if mesh is not None else get_mesh()
+    if client_spec(ndim, axis, mesh) is None:
+        return None
+    caxes = _client_axes_in(mesh)
+    return tuple(Shard(axis) if n in caxes else Replicate()
+                 for n in mesh.mesh_dim_names)
+
+
+def data_shard_count(mesh=None) -> int:
+    """How many ways the mesh splits the client axis: the product over
+    the DATA_AXES it has (pod x data).  1 without a mesh."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if mesh is None:
+        return 1
+    return _client_axis_size(mesh)
+
+
+def pod_count(mesh=None) -> int:
+    """Size of the mesh's ``pod`` axis (1 without a mesh or pod axis)."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if mesh is None or POD_AXIS not in mesh.mesh_dim_names:
+        return 1
+    return _axis_sizes(mesh)[POD_AXIS]
+
+
+def pod_data_counts(mesh=None):
+    """``(pods, per_pod_shards)``; their product is
+    :func:`data_shard_count`."""
+    mesh = mesh if mesh is not None else get_mesh()
+    p = pod_count(mesh)
+    return p, data_shard_count(mesh) // p
+
+
+def lane_spec(ndim: int, mesh=None):
+    """Spec of the two-tier fold's ``(pods, shards, ...)`` lane tensor:
+    dim 0 on ``pod``, dim 1 on ``data``.  None without data axes."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if mesh is None or ndim < 2:
+        return None
+    caxes = _client_axes_in(mesh)
+    if not caxes:
+        return None
+    spec = [None] * ndim
+    if POD_AXIS in mesh.mesh_dim_names:
+        spec[0] = POD_AXIS
+        rest = tuple(a for a in caxes if a != POD_AXIS)
+        if rest:
+            spec[1] = rest if len(rest) > 1 else rest[0]
+    else:
+        spec[1] = caxes if len(caxes) > 1 else caxes[0]
+    return tuple(spec)
+
+
+def shard_lanes(x):
+    """This rank's lanes of a ``(pods, shards, ...)`` tensor; ``x`` itself
+    without a mesh, without data axes, or when a lane dim does not tile."""
+    mesh = get_mesh()
+    spec = None if mesh is None else lane_spec(x.dim(), mesh)
+    if spec is None or _tiling_spec(x.shape, spec, mesh) != spec:
+        return x
+    return _local(x, spec, mesh)
+
+
+def client_range(n: int, mesh=None):
+    """``(lo, hi)``: the contiguous range of ``n`` client-axis rows this
+    rank owns; ``(0, n)`` off-mesh or when ``n`` does not tile."""
+    mesh = mesh if mesh is not None else get_mesh()
+    R = data_shard_count(mesh)
+    if R <= 1 or n % R:
+        return 0, n
+    c = client_index(mesh)
+    return c * n // R, (c + 1) * n // R
+
+
+def put_clients_by_shard(build_fn, shape, axis: int = 0, mesh=None):
+    """Build this rank's block of a client-stacked array, and only it:
+    ``build_fn(lo, hi)`` produces rows ``[lo, hi)`` of client axis
+    ``axis``, so no process ever holds the full ``shape`` stack.  Off-mesh
+    (or when the client axis does not tile) it builds all ``C`` rows."""
+    lo, hi = client_range(shape[axis], mesh)
+    return build_fn(lo, hi)
+
+
+def shard_clients(x, axis: int = 0):
+    """This rank's block of dim ``axis`` of ``x``; ``x`` itself without a
+    mesh, without data axes, or when the dim does not tile."""
+    lo, hi = client_range(x.shape[axis])
+    return x if (lo, hi) == (0, x.shape[axis]) else x.narrow(axis, lo,
+                                                             hi - lo)
+
+
+def client_put(x, axis: int = 0):
+    """Eager twin of :func:`shard_clients` (the same block)."""
+    return shard_clients(x, axis)
+
+
+def sweep_put(tree):
+    """This rank's share of a sweep group's stacked operands (leading
+    *scenario* axis on every leaf): the cells run one batch per data
+    coordinate, contiguous and in cell order (``fl/sweep.py``).  A leaf
+    whose group size does not tile the data axes stays whole, and every
+    rank runs all of it."""
+    from ..fl.chunking import tree_map
+    return tree_map(lambda x: client_put(x, axis=0), tree)
+
+
+# ----------------------------------------------------------------------
+# Client x model 2D sharding (the blocked (ms, L) layout)
+# ----------------------------------------------------------------------
+
+def model_shard_count(mesh=None) -> int:
+    """Size of the mesh's ``model`` axis; 1 without a mesh or the axis."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if mesh is None or MODEL_AXIS not in mesh.mesh_dim_names:
+        return 1
+    return _axis_sizes(mesh)[MODEL_AXIS]
+
+
+def update_spec(ndim: int, axis: int = 0, mesh=None):
+    """Spec of a client-stacked flat quantity: dim ``axis`` on the data
+    axes, the last dim on ``model`` (when > 1).  None when neither
+    applies."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if mesh is None:
+        return None
+    spec = [None] * ndim
+    caxes = _client_axes_in(mesh)
+    if caxes and ndim > 1 and axis != ndim - 1:
+        spec[axis] = caxes if len(caxes) > 1 else caxes[0]
+    if model_shard_count(mesh) > 1:
+        spec[-1] = MODEL_AXIS
+    if all(s is None for s in spec):
+        return None
+    return tuple(spec)
+
+
+def shard_flat(x):
+    """This rank's block of a flat model-dim quantity: row ``s`` (kept as
+    a (1, L) block) of the blocked ``(ms, L)`` layout, or its tile of a
+    ``(D,)`` vector.  ``x`` itself without a mesh, on a model axis of 1,
+    or when the dim does not tile."""
+    mesh = get_mesh()
+    ms = model_shard_count(mesh)
+    if mesh is None or ms <= 1:
+        return x
+    if x.dim() == 2 and x.shape[0] == ms:
+        spec = (MODEL_AXIS, None)
+    else:
+        spec = _tiling_spec(x.shape, (None,) * (x.dim() - 1)
+                            + (MODEL_AXIS,), mesh)
+    return x if spec is None else _local(x, spec, mesh)
+
+
+def shard_updates(x, axis: int = 0):
+    """This rank's block of a client-stacked flat matrix over both mesh
+    families: dim ``axis`` on the data axes and the flat dim (the row dim
+    of a blocked ``(clients, ms, L)`` matrix) on ``model``, each dropped
+    where it does not tile."""
+    mesh = get_mesh()
+    if mesh is None:
+        return x
+    ms = model_shard_count(mesh)
+    if x.dim() == 3 and ms > 1 and x.shape[1] == ms:
+        caxes = _client_axes_in(mesh)
+        cspec = None
+        if caxes and x.shape[0] % _client_axis_size(mesh) == 0:
+            cspec = caxes if len(caxes) > 1 else caxes[0]
+        spec = (cspec, MODEL_AXIS, None)
+    else:
+        spec = update_spec(x.dim(), axis, mesh)
+        spec = None if spec is None else _tiling_spec(x.shape, spec, mesh)
+    return x if spec is None else _local(x, spec, mesh)
+
+
+def _ref_path(key: str) -> str:
+    """The reference's path string of a leaf: the port's flat zoo keys
+    (``convert.flatten_tree``) lead with a zero-padded position."""
+    return re.sub(r"^\d+:", "", key)
+
+
+def _paths(tree) -> list:
+    """``(reference path string, leaf)`` in JAX's leaf order."""
+    return [(_ref_path("/".join(p)), leaf) for p, leaf in leaf_paths(tree)]
+
+
+def _leaf_plan(path: str, shape, ms: int):
+    """``(shape, size, cols, split_dim)`` of one leaf in the blocked
+    layout.  ``split_dim`` is the dim the partition table shards over
+    ``model`` (when it tiles ``ms``): row ``s`` then holds model rank
+    ``s``'s tile.  ``None`` picks the row-major pad-and-split of the
+    raveled leaf."""
+    sz = int(math.prod(shape))
+    for k, name in enumerate(param_partition_spec(path, len(shape))):
+        if name == MODEL_AXIS and shape[k] % ms == 0:
+            return shape, sz, sz // ms, k
+    return shape, sz, -(-sz // ms), None
+
+
+class BlockedLayout:
+    """The blocked ``(ms, L)`` arrangement of a params-shaped tree, a pure
+    function of ``ms`` and the leaf plans: ``L = Σ_ℓ cols_ℓ``.
+
+    ``blocks(leaves)`` arranges client-stacked fp32 leaves (in JAX's leaf
+    order) into ``(n, ms, L)``; ``unravel((ms, L))`` inverts it (the zero
+    padding trimmed); ``rows(flat, s)`` takes row ``s`` of a flat ``(n,
+    D)`` matrix in ``core.aggregators.flatten_updates`` order without
+    building the other rows."""
+
+    def __init__(self, like, ms: int, batched: bool):
+        self.like, self.ms = like, ms
+        pairs = _paths(like)
+        cut = 1 if batched else 0
+        self.plans = [_leaf_plan(p, tuple(u.shape[cut:]), ms)
+                      for p, u in pairs]
+        self.L = sum(c for _, _, c, _ in self.plans)
+
+    def _piece(self, uf, plan, s=None):
+        """(n, ms, c) of one (n, *shape) fp32 leaf; (n, c) of row s."""
+        shape, sz, c, k = plan
+        n, ms = uf.shape[0], self.ms
+        if k is not None:
+            nk = shape[k]
+            uf = uf.reshape((n,) + shape[:k] + (ms, nk // ms) + shape[k + 1:])
+            if s is not None:
+                return uf.select(1 + k, s).reshape(n, c)
+            return uf.movedim(1 + k, 1).reshape(n, ms, c)
+        p = uf.reshape(n, sz)
+        if c * ms != sz:
+            p = torch.nn.functional.pad(p, (0, c * ms - sz))
+        p = p.reshape(n, ms, c)
+        return p if s is None else p[:, s]
+
+    def blocks(self, leaves) -> torch.Tensor:
+        return torch.cat([self._piece(u.to(torch.float32), plan)
+                          for u, plan in zip(leaves, self.plans)], dim=2)
+
+    def rows(self, flat: torch.Tensor, s: int) -> torch.Tensor:
+        n, out, o = flat.shape[0], [], 0
+        for plan in self.plans:
+            shape, sz = plan[0], plan[1]
+            u = flat[:, o:o + sz].reshape((n,) + shape)
+            out.append(self._piece(u.to(torch.float32), plan, s))
+            o += sz
+        return torch.cat(out, dim=1)
+
+    def unravel(self, vec: torch.Tensor):
+        outs, o = [], 0
+        for shape, sz, c, k in self.plans:
+            band = vec[:, o:o + c]
+            if k is not None:
+                nk = shape[k]
+                band = band.reshape((self.ms,) + shape[:k] + (nk // self.ms,)
+                                    + shape[k + 1:])
+                outs.append(band.movedim(0, k).reshape(shape))
+            else:
+                outs.append(band.reshape(self.ms * c)[:sz].reshape(shape))
+            o += c
+        return unflatten_like(self.like, outs)
+
+
+def flatten_updates_sharded(updates, ms: Optional[int] = None):
+    """Model-sharded twin of ``core.aggregators.flatten_updates``: the
+    same per-element fp32 casts in the same leaf order, laid out as the
+    blocked ``(N, ms, L)`` matrix, ``ms = model_shard_count()`` unless
+    given.  Each leaf is split into ``ms`` rows along the dim the
+    partition table shards (its model tiles, in tile order) or, when none
+    tiles, raveled and zero-padded to a multiple of ``ms``; the leaves'
+    column bands are concatenated.  The arrangement and the padding are
+    the reference's bit for bit.  Returns ``(blocked, unravel)``,
+    ``unravel((ms, L)) -> one client's tree``; model rank ``s`` keeps row
+    ``s`` of every client."""
+    ms = model_shard_count() if ms is None else ms
+    layout = BlockedLayout(updates, ms, batched=True)
+    flat = layout.blocks([u for _, u in _paths(updates)])
+    return flat, layout.unravel
+
+
+def ravel_sharded(tree, ms: Optional[int] = None):
+    """One-client :func:`flatten_updates_sharded`: ``tree`` raveled into
+    the blocked ``(ms, L)`` fp32 layout, with the same column offsets and
+    rows, so guides and updates align element for element."""
+    ms = model_shard_count() if ms is None else ms
+    layout = BlockedLayout(tree, ms, batched=False)
+    return layout.blocks([u.unsqueeze(0) for _, u in _paths(tree)])[0]
+
+
+def blocked_layout(params, ms: Optional[int] = None) -> BlockedLayout:
+    """The :class:`BlockedLayout` of an unbatched params tree."""
+    ms = model_shard_count() if ms is None else ms
+    return BlockedLayout(params, ms, batched=False)
+
+
+# ----------------------------------------------------------------------
+# Parameter partition rules (megatron-style + expert parallel), keyed on
+# substrings of the reference's parameter path
+# ----------------------------------------------------------------------
+
+def _last(nd, axis, over_first=False):
+    spec = [None] * nd
+    if over_first:
+        spec[-2 if nd >= 2 else 0] = MODEL_AXIS   # embed (.., V, D): V
+    else:
+        spec[-1] = axis
+    return tuple(spec)
+
+
+def _secondlast(nd, axis):
+    spec = [None] * nd
+    spec[-2 if nd >= 2 else -1] = axis
+    return tuple(spec)
+
+
+def _expert(nd):
+    # routed expert weights are (n_groups?, E, D, F): the expert dim
+    spec = [None] * nd
+    spec[-3 if nd >= 3 else 0] = MODEL_AXIS
+    return tuple(spec)
+
+
+_RULES = (
+    ("embed",    lambda nd: _last(nd, None, over_first=True)),   # (V, D)
+    ("lm_head",  lambda nd: _last(nd, MODEL_AXIS)),              # (D, V)
+    ("wq",       lambda nd: _last(nd, MODEL_AXIS)),              # (D, H*dh)
+    ("wk",       lambda nd: _last(nd, MODEL_AXIS)),
+    ("wv",       lambda nd: _last(nd, MODEL_AXIS)),
+    ("wo",       lambda nd: _secondlast(nd, MODEL_AXIS)),        # (H*dh, D)
+    ("w_up",     lambda nd: _last(nd, MODEL_AXIS)),              # (D, F)
+    ("w_gate",   lambda nd: _last(nd, MODEL_AXIS)),
+    ("w_down",   lambda nd: _secondlast(nd, MODEL_AXIS)),        # (F, D)
+    ("router",   lambda nd: _last(nd, None)),
+    ("routed",   lambda nd: _expert(nd)),                        # (.., E, D, F)
+    ("shared",   lambda nd: _last(nd, MODEL_AXIS)),
+    ("in_proj",  lambda nd: _last(nd, MODEL_AXIS)),              # (D, 2*di)
+    ("conv_w",   lambda nd: _last(nd, MODEL_AXIS)),              # (k, di)
+    ("conv_b",   lambda nd: _last(nd, MODEL_AXIS)),
+    ("x_proj",   lambda nd: _secondlast(nd, MODEL_AXIS)),        # (di, R+2S)
+    ("dt_proj",  lambda nd: _last(nd, MODEL_AXIS)),              # (R, di)
+    ("A_log",    lambda nd: _secondlast(nd, MODEL_AXIS)),        # (di, S)
+    ("D_skip",   lambda nd: _last(nd, MODEL_AXIS)),              # (di,)
+    ("dt_bias",  lambda nd: _last(nd, MODEL_AXIS)),
+    ("out_proj", lambda nd: _secondlast(nd, MODEL_AXIS)),        # (di, D)
+)
+
+
+def param_partition_spec(path: str, ndim: int) -> tuple:
+    """The spec of the leaf at the reference's ``path``: the first rule
+    whose key is a substring of it; ``()`` (replicated) for norms, biases
+    and scalars."""
+    for key, make_spec in _RULES:
+        if key in path:
+            return make_spec(ndim)
+    return ()
+
+
+def _map_paths(fn, tree, prefix=()):
+    """``fn(reference path, leaf)`` over a tree, structure kept."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, prefix + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_paths(fn, v, prefix + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(_ref_path("/".join(prefix)), tree)
+
+
+def partition_pytree(params):
+    """The params tree with each leaf's spec in its place."""
+    return _map_paths(lambda p, leaf: param_partition_spec(p, leaf.dim()),
+                      params)
+
+
+def param_shardings(params, mesh=None):
+    """The partition table's split of each leaf on the client x model mesh:
+    its spec with every dim that does not tile dropped (``()`` where
+    nothing tiles), replicated over the client axes (every client trains
+    the same parameters).  A description of the reference's layout: the
+    port keeps the params whole (module docstring).  None without a
+    mesh."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if mesh is None:
+        return None
+
+    def one(path, leaf):
+        spec = param_partition_spec(path, leaf.dim())
+        s = _tiling_spec(leaf.shape, spec, mesh) if spec else None
+        return () if s is None else s
+    return _map_paths(one, params)
+
+
+def place_params(params, mesh=None):
+    """The reference's placement of params on the mesh.  The port keeps
+    them whole and replicated on every rank (module docstring), so this is
+    the identity, with or without a mesh."""
+    return params
+
+
+def shard_params(params):
+    """The reference's in-round twin of :func:`place_params`: the identity
+    here, for the same reason."""
+    return params

@@ -10,8 +10,9 @@
   its key chain), the port's engine matches
   ``repro.fl.engine.RoundEngine``: masks exactly every round, params and
   the eval history to fp32 tolerance (atol 1e-5, rtol 1e-4).
-* The named refusals: ``graph=True`` off the card, ``mesh=``, model
-  sharding, a segment batch mode its draws cannot honour, ``donate=True``.
+* The named refusals: ``graph=True`` off the card, a ``mesh=`` that is
+  not a ``DeviceMesh``, a dense config on a model axis > 1, a segment
+  batch mode its draws cannot honour, ``donate=True``.
 """
 import jax
 import numpy as np
@@ -178,10 +179,10 @@ def test_refusals_are_named(data):
     fed = federation(c, data)
     with pytest.raises(ValueError, match="needs a CUDA device"):
         RoundEngine(model(), fed, c, graph=True)
-    with pytest.raises(NotImplementedError, match="S6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         RoundEngine(model(), fed, c, mesh=object())
-    with pytest.raises(NotImplementedError, match="model sharding.*S6"):
-        RoundEngine(model(), fed, c, model_shards=2)
+    with pytest.raises(ValueError, match="model-sharded run.*streaming"):
+        cfg(streaming=False).validate_model_sharding(100, 2)
 
 
 def test_build_counter_counts_engines(data):

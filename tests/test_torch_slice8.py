@@ -614,7 +614,8 @@ CENSUS = ["core/aggregators", "core/diversefl", "core/attacks",
           "fl/telemetry", "fl/sweep", "fl/engine", "fl/zoo", "kernels/ops",
           "models/config", "models/layers", "models/attention",
           "models/mamba", "models/moe", "models/frontends", "models/model",
-          "launch/observe", "launch/serve"] + [
+          "launch/observe", "launch/serve", "sharding/api", "launch/mesh",
+          "launch/train", "launch/shapes"] + [
     "configs/" + a for a in ("gemma_2b", "whisper_medium", "deepseek_moe_16b",
                              "kimi_k2_1t_a32b", "h2o_danube_1_8b",
                              "granite_20b", "llama_3_2_vision_90b",
@@ -626,12 +627,7 @@ CENSUS = ["core/aggregators", "core/diversefl", "core/attacks",
 # Pallas programs and TPU block sizes, whose counterparts are CUDA sources
 # that the kernel tests and chip_smoke.py hold against the plain versions.
 # Each name the port leaves out, with the ROADMAP item that takes it:
-EXCLUDED = {
-    "fl/streaming.flat_ndim":
-        "S6b: the model-sharded (ms, L) update layout (ROADMAP queue 1)",
-    "fl/simulator.FLConfig.validate_model_sharding":
-        "S6b: the model-sharded engine's knob checks (ROADMAP queue 1)",
-}
+EXCLUDED = {}
 
 
 def _public_names(path):
