@@ -154,7 +154,8 @@ Phases (any failure raises and the script exits non-zero):
                record beside it (BENCH_model_fl.json); h2o-danube-1.8b at
                its published widths, all 24 layers, 2 eager rounds (peak
                GiB); similarity_stats and masked_agg_update at
-               (1, 100369280) fp32 against their bounds; a CUDA
+               (1, 100369280) and train_fl_llm's (4, 94224000) fp32
+               against their plain versions and bounds; a CUDA
                flash_attention and mamba_scan call under grad refused by
                name.  [card-vs-cpu-s6a]: the CPU tests' zoo-tiny run on the
                card and on the CPU from the same draws (bf16 and fp32):
@@ -173,7 +174,24 @@ Phases (any failure raises and the script exits non-zero):
                sign-flipped, dropped, params bitwise unchanged; the
                launcher CLI (gemma-2b, 3 rounds); 0 collectives over the
                phase.  ms/round, ms/step and peak GiB
- 13. result  - a capture that reads the card on the host fails by name; a
+ 13. slice 13 (S6c + examples) - after [card-vs-cpu-s6a].
+               [examples]: repro_torch.examples' five entry points on the
+               card at their defaults (train_fl_llm on one NCCL rank, 5
+               rounds, full widths), wall time and launches each:
+               quickstart's accuracy and detection bars, attack_gallery's
+               C1 x C2 separation under sign_flip, paper_grid's 48 cells
+               (diversefl within 0.03 of oracle per attack), serve_decode's
+               tokens on the card equal to the CPU's from the same params
+               up to the first near-tie, train_fl_llm's last TPR of 1 and
+               finite metrics; EXAMPLE_MISSES holds the bars the card's
+               draws miss, strictly, each beside a 16-seed scan on the
+               card (train_fl_llm's at 2 x 64).  [dryrun]:
+               launch.dryrun's CLI on h2o-danube-1.8b at decode_32k and
+               train_4k (a fake
+               256-rank group, fake CUDA tensors, nothing allocated), and
+               its census of [mesh]'s round step within 10 % of the peak
+               [mesh] measured
+ 14. result  - a capture that reads the card on the host fails by name; a
                ``kernels`` JSON line, then ``{"ok": true, ...}`` last
 """
 import contextlib
@@ -237,7 +255,8 @@ from repro_torch.kernels.robust_agg import (robust_agg_cuda,  # noqa: E402
                                             robust_agg_v1_cuda)
 from repro_torch.kernels.similarity import (similarity_cuda,  # noqa: E402
                                             similarity_plain)
-from repro_torch.launch import observe  # noqa: E402
+from repro_torch.launch import dryrun, observe  # noqa: E402
+from repro_torch.launch.hlo import HBM_BW, PEAK_FLOPS_BF16  # noqa: E402
 from repro_torch.launch.serve import (make_prefill,  # noqa: E402
                                       make_serve_step)
 from repro_torch.models import frontends  # noqa: E402
@@ -245,9 +264,11 @@ from repro_torch.models import model as zoo_model  # noqa: E402
 from repro_torch.models import moe as zoo_moe  # noqa: E402
 from repro_torch.optim import constant_lr, inv_sqrt_lr  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+# the card's bf16 tensor-core peak and HBM rate: launch.hlo's H100 SXM
+# data-sheet figures, the dry run's roofline terms
+HBM_BYTES_PER_S = HBM_BW
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+BF16_FLOPS_PER_S = PEAK_FLOPS_BF16
 L2_BYTES = 50 * 2 ** 20          # H100 SXM L2
 COLD_BYTES = 4 * L2_BYTES        # a cold timing cycles over this many bytes
 MAIN_SHAPE = (23, 7850)          # 23 clients x softmax regression's D
@@ -3364,7 +3385,10 @@ FL_LLM_100M = models.ModelConfig(name="fl-llm-100m", n_layers=13,
 # tests/test_model_fl.py's meshless zoo run
 ZOO_TINY = dict(name="zoo-tiny", n_layers=2, d_model=32, n_heads=4,
                 n_kv_heads=2, d_ff=64, vocab_size=64, attn_direct_max=16)
-ZOO_FL_SHAPE = (1, 100_369_280)  # one client's fp32 row of fl-llm-100m
+# the streamed fold's fp32 row blocks: one client's row of [zoo-fl]'s
+# fl-llm-100m, and the four clients' rows that [examples]' train_fl_llm
+# (94,224,000 params, client_chunk None) folds in one block
+ZOO_FL_SHAPES = ((1, 100_369_280), (4, 94_224_000))
 
 
 def zoo_fl_cfg(n_clients=2, rounds=2, **kw):
@@ -3446,35 +3470,36 @@ def check_grad_refusal(card):
 
 
 def zoo_kernel_rows(card):
-    """The two kernels of the zoo's streamed fold at fl-llm-100m's row,
-    (1, 100,369,280) fp32: each held against its plain version, then
-    timed cold (the inputs alone are 16x the L2) beside the plain version
-    and the library call."""
-    n, d = ZOO_FL_SHAPE
-    gen = torch.Generator(device=DEV).manual_seed(4321)
-    z = torch.randn((n, d), generator=gen, device=DEV)
-    g = z + 0.5 * torch.randn((n, d), generator=gen, device=DEV)
-    err = check_similarity(z, g)
-    rows = {"similarity_stats": time_kernel(
-        card, "similarity_stats", (n, d),
-        (lambda z, g, S: similarity_cuda(z, g),
-         lambda z, g, S: similarity_plain(z, g),
-         lambda z, g, S: torch.bmm(S, S.transpose(1, 2))),
-        (z, g, torch.stack([z, g], dim=1)),
-        bound_ms(2 * n * d * 4 + n * 3 * 4, 6 * n * d), err, 30, 5)}
-    del g
-    torch.cuda.empty_cache()
-    w = torch.full((n,), 0.5, device=DEV)
-    acc = torch.randn((d,), generator=gen, device=DEV)
-    err = check_update(z, w, acc)
-    rows["masked_agg_update"] = time_kernel(
-        card, "masked_agg_update", (n, d),
-        (lambda u, w, acc: masked_agg_update_cuda(u, w, acc),
-         lambda u, w, acc: masked_agg_update_plain(u, w, acc),
-         lambda u, w, acc: torch.addmv(acc, u.T, w)), (z, w, acc),
-        bound_ms(n * d * 4 + n * 4 + 2 * d * 4, 2 * n * d), err, 30, 5)
-    del z, acc
-    torch.cuda.empty_cache()
+    """The two kernels of the streamed fold at each ZOO_FL_SHAPES row
+    block, fp32: each held against its plain version, then timed cold
+    (the inputs alone are 16x the L2 and more) beside the plain version
+    and the library call.  -> {(name, shape): its time_kernel row}."""
+    rows = {}
+    for n, d in ZOO_FL_SHAPES:
+        gen = torch.Generator(device=DEV).manual_seed(4321)
+        z = torch.randn((n, d), generator=gen, device=DEV)
+        g = z + 0.5 * torch.randn((n, d), generator=gen, device=DEV)
+        err = check_similarity(z, g)
+        rows["similarity_stats", (n, d)] = time_kernel(
+            card, "similarity_stats", (n, d),
+            (lambda z, g, S: similarity_cuda(z, g),
+             lambda z, g, S: similarity_plain(z, g),
+             lambda z, g, S: torch.bmm(S, S.transpose(1, 2))),
+            (z, g, torch.stack([z, g], dim=1)),
+            bound_ms(2 * n * d * 4 + n * 3 * 4, 6 * n * d), err, 30, 5)
+        del g
+        torch.cuda.empty_cache()
+        w = torch.full((n,), 0.5, device=DEV)
+        acc = torch.randn((d,), generator=gen, device=DEV)
+        err = check_update(z, w, acc)
+        rows["masked_agg_update", (n, d)] = time_kernel(
+            card, "masked_agg_update", (n, d),
+            (lambda u, w, acc: masked_agg_update_cuda(u, w, acc),
+             lambda u, w, acc: masked_agg_update_plain(u, w, acc),
+             lambda u, w, acc: torch.addmv(acc, u.T, w)), (z, w, acc),
+            bound_ms(n * d * 4 + n * 4 + 2 * d * 4, 2 * n * d), err, 30, 5)
+        del z, acc
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3831,6 +3856,18 @@ def mesh_danube_run(card, mesh, zoo):
     torch.cuda.empty_cache()
 
 
+def round_step_inputs(tokens, byz_kind=0):
+    """launch.train.make_fl_round_step's inputs for one client of
+    ``tokens`` (1, S): its own batch as its guide (so z == g), Byzantine
+    kind ``byz_kind`` (0 honest, 1 sign flip), a zero key; fake tensors
+    when called under FakeTensorMode with fake ``tokens``."""
+    return {"tokens": tokens, "guide_tokens": tokens[None],
+            "byz_kind": torch.full((1,), byz_kind, dtype=torch.int32,
+                                   device=tokens.device),
+            "rng": torch.zeros((2,), dtype=torch.int64,
+                               device=tokens.device)}
+
+
 def mesh_round_step(card, mesh):
     """launch.train.make_fl_round_step at h2o-danube-1.8b's published
     widths on the 1 x 1 mesh, fp32 updates, S = 512, 2 steps.  The guide
@@ -3846,9 +3883,7 @@ def mesh_round_step(card, mesh):
     gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
     tokens = torch.randint(0, dcfg.vocab_size, (1, STEP_SEQ), generator=gen,
                            device=DEV)
-    inputs = {"tokens": tokens, "guide_tokens": tokens[None],
-              "byz_kind": torch.zeros((1,), dtype=torch.int32, device=DEV),
-              "rng": torch.zeros((2,), dtype=torch.int64, device=DEV)}
+    inputs = round_step_inputs(tokens)
     step = make_fl_round_step(dcfg, mesh, lr=STEP_LR, compression="f32")
     tag = "[mesh] round step h2o-danube-1.8b"
     times, peaks = [], []
@@ -3874,8 +3909,7 @@ def mesh_round_step(card, mesh):
         if not torch.equal(flat1[k], (p.float() - z[k]).to(p.dtype)):
             raise AssertionError(f"{tag}: {k} is not (p - z) rounded once")
     del z, flat0
-    p2, m2 = timed(p1, dict(inputs, byz_kind=torch.ones(
-        (1,), dtype=torch.int32, device=DEV)))
+    p2, m2 = timed(p1, round_step_inputs(tokens, byz_kind=1))
     if float(m2["kept"]) != 0.0 or m2["mask"].tolist() != [False]:
         raise AssertionError(f"{tag}: byz_kind 1 gave {m2}")
     flat2 = flatten_tree(p2)
@@ -3897,7 +3931,8 @@ def phase_mesh(card, zoo):
     ``launch.mesh``/``train``) on the card: a world-1 NCCL group through a
     FileStore and a 1 x 1 mesh; [zoo-fl]'s runs through the engine on it,
     bitwise the meshless ones, with no collective; the round step at
-    h2o-danube-1.8b's widths; the launcher CLI."""
+    h2o-danube-1.8b's widths; the launcher CLI.  -> the round step's
+    two peaks, GiB above the bytes held before each step."""
     import io
     import tempfile
 
@@ -3916,9 +3951,9 @@ def phase_mesh(card, zoo):
                     tuple(mesh.shape)) != ("cuda", ("data", "model"),
                                            (1, 1)):
                 raise AssertionError(f"[mesh] built {mesh}")
-            launches = mesh_fl_runs(card, mesh, zoo)
+            mesh_fl_runs(card, mesh, zoo)
             mesh_danube_run(card, mesh, zoo)
-            mesh_round_step(card, mesh)
+            _, step_peaks = mesh_round_step(card, mesh)
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 train_main(["--arch", "gemma-2b", "--rounds", "3"])
@@ -3938,7 +3973,263 @@ def phase_mesh(card, zoo):
                              f"{before} -> {after}")
     log(f"[mesh] 0 collectives issued ({after}); "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
-    return launches
+    return step_peaks
+
+
+# ----------------------------------------------------------------------
+# slice 13 (S6c + examples): the examples and the dry run
+# ----------------------------------------------------------------------
+
+# the examples' bars (the reference's, PERF.md section 2) that the card's
+# draws miss at the examples' fixed seeds: each is held as a miss,
+# strictly, beside a scan of seeds 0..EXAMPLE_SEEDS - 1 on the card (ROADMAP
+# queue 3; tests/example_seed_scan.py scans both packages on the CPU); a
+# bar that starts to hold fails the run until it is taken out.  quickstart:
+# one of 18 benign clients flagged under sign_flip (FPR 1/18), as on the CPU,
+# where over seeds 0-15 the reference meets the bar at 9 and the port at
+# 11; train_fl_llm: at round 5 the sign-flipped client's C1 x C2 is
+# positive (kept), as on the CPU at 2 x 64, where over seeds 0-15 the
+# reference flags it at 13 and the port at 11
+EXAMPLE_MISSES = ("quickstart sign_flip detection",
+                  "train_fl_llm detection")
+EXAMPLE_SEEDS = 16
+# train_fl_llm's scan: the CPU test's widths, the card run's 5 rounds
+EXAMPLE_SCAN_LLM = ["--layers", "2", "--d-model", "64", "--seq", "32",
+                    "--rounds", "5"]
+
+
+def example_bar(ok, key, detail, scan=None):
+    """The bar ``key`` (``detail``: its numbers); one in EXAMPLE_MISSES
+    must miss, and ``scan()`` gives the seeds at which it holds."""
+    if key in EXAMPLE_MISSES:
+        held = scan()
+        log(f"[examples] {key}: a fixed-seed bar, held at {len(held)} of "
+            f"seeds 0..{EXAMPLE_SEEDS - 1} on the card: {held}")
+        bar(not ok, f"[examples] {key} now holds ({detail}): take it out "
+            f"of EXAMPLE_MISSES")
+        log(f"[examples] {key}: missed, as EXAMPLE_MISSES records: "
+            f"{detail}")
+    else:
+        bar(ok, f"[examples] {key}: {detail}")
+
+
+def quickstart_held(quickstart):
+    """The seeds s < EXAMPLE_SEEDS at which quickstart's diversefl under
+    sign_flip has TPR 1 and FPR 0: rounds from seed s, the federation from
+    generator seed 2 + s (s = 0 is the example's draw)."""
+    dev = torch.device(DEV)
+    data, tx, ty = quickstart.paper_data(dev)
+    model = softmax_regression()
+    held = []
+    for s in range(EXAMPLE_SEEDS):
+        r = quickstart.run(model, data, tx, ty, "diversefl", "sign_flip",
+                           dev, seed=s, fed_seed=2 + s)
+        if r["tpr"] == 1.0 and r["fpr"] == 0.0:
+            held.append(s)
+    return held
+
+
+def train_fl_llm_held(train_fl_llm):
+    """The seeds s < EXAMPLE_SEEDS (``FLConfig.seed``) at which
+    train_fl_llm at EXAMPLE_SCAN_LLM's widths flags its sign-flipped client
+    at round 5, on a 1 x 1 mesh of a world-1 NCCL group."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_local_group, make_host_mesh
+    args = dict(vars(train_fl_llm.parse_args(EXAMPLE_SCAN_LLM)),
+                device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        init_local_group(0, 1, "nccl", store_path=os.path.join(d, "store"),
+                         timeout=300)
+        try:
+            mesh = make_host_mesh(1, 1)
+            return [s for s in range(EXAMPLE_SEEDS)
+                    if float(train_fl_llm.train(
+                        args, torch.device(DEV), mesh,
+                        seed=s)[2]["mask_tpr"][-1]) == 1.0]
+        finally:
+            dist.destroy_process_group()
+
+
+def run_example(card, name, fn):
+    """``fn()`` timed on the host clock around a synchronised run, with
+    the kernel launches it counted in this process."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts = ops.launch_counts()
+    log(f"[examples] {name}: {dt:.1f} s, launches {nonzero(counts)} "
+        f"[{card}]")
+    return out, counts
+
+
+def phase_examples(card):
+    """The reference's five examples as the port's entry points
+    (``repro_torch.examples``) on the card at their defaults, but
+    train_fl_llm on a 1 x 1 mesh (one NCCL rank) for 5 rounds at its full
+    widths; each held to the reference's bars."""
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.examples import (attack_gallery, paper_grid,
+                                      quickstart, serve_decode, train_fl_llm)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    rows, counts = run_example(card, "quickstart", lambda: quickstart.main([]))
+    r = {(x["aggregator"], x["attack"]): x for x in rows}
+    dfl, orc = r["diversefl", "sign_flip"], r["oracle", "sign_flip"]
+    dfg, mean = r["diversefl", "gaussian"], r["mean", "gaussian"]
+    example_bar(dfl["acc"] >= orc["acc"] - 0.03,
+                "quickstart sign_flip accuracy",
+                f"diversefl acc {dfl['acc']:.4f} >= oracle "
+                f"{orc['acc']:.4f} - 0.03")
+    example_bar(dfl["tpr"] == 1.0 and dfl["fpr"] == 0.0,
+                "quickstart sign_flip detection",
+                f"diversefl TPR {dfl['tpr']} FPR {dfl['fpr']}",
+                lambda: quickstart_held(quickstart))
+    example_bar(dfg["acc"] > mean["acc"] + 0.3,
+                "quickstart gaussian accuracy",
+                f"diversefl acc {dfg['acc']:.4f} > mean {mean['acc']:.4f} "
+                f"+ 0.3")
+    if not (counts["similarity_stats"] > 0 and counts["masked_aggregate"] > 0):
+        raise AssertionError(f"[examples] quickstart launches {counts}")
+
+    rows, _ = run_example(card, "attack_gallery",
+                          lambda: attack_gallery.main([]))
+    sf = next(x for x in rows if x["attack"] == "sign_flip")
+    byz, c = np.asarray(sf["byz"]), np.asarray(sf["c1c2"])
+    example_bar(c[byz].max() < c[~byz].min(), "attack_gallery separation",
+                f"sign_flip: Byzantine C1xC2 max {c[byz].max():+.3f} < "
+                f"benign min {c[~byz].min():+.3f}")
+
+    rows, counts = run_example(card, "paper_grid",
+                               lambda: paper_grid.main([]))
+    if len(rows) != 48:
+        raise AssertionError(f"[examples] paper_grid gave {len(rows)} rows")
+    for atk in paper_grid.ATTACKS:
+        acc = {a: np.mean([x["final_acc"] for x in rows
+                           if x["aggregator"] == a
+                           and x["attack"] == atk.kind])
+               for a in ("diversefl", "oracle")}
+        example_bar(acc["diversefl"] >= acc["oracle"] - 0.03,
+                    f"paper_grid {atk.kind}",
+                    f"diversefl {acc['diversefl']:.4f} >= oracle "
+                    f"{acc['oracle']:.4f} - 0.03 (seed mean)")
+    if not (counts["masked_agg_update"] > 0
+            and counts["similarity_stats"] > 0):
+        raise AssertionError(f"[examples] paper_grid launches {counts}")
+
+    run_example(card, "serve_decode", lambda: serve_decode.main([]))
+    cfg = configs.get("h2o-danube-1.8b", smoke=True)
+    params = models.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (4, 16),
+                           generator=torch.Generator().manual_seed(1))
+    cpu_toks, cpu_gaps = serve_decode.generate(cfg, params, prompt, 24,
+                                               "cpu")
+    card_params = tree_map(lambda t: t.to(DEV), params)
+    toks, gaps = serve_decode.generate(cfg, card_params, prompt, 24, DEV)
+    held = serve_decode.agree_until_tie(toks, cpu_toks,
+                                        np.minimum(gaps, cpu_gaps))
+    log(f"[examples] serve_decode: the card's tokens equal the CPU's from "
+        f"the same params, per sequence up to the first near-tie (top-2 "
+        f"gap < {serve_decode.NEAR_TIE}): {held} of {toks.shape[1]} "
+        f"tokens [{card}]")
+
+    args = train_fl_llm.parse_args(["--data", "1", "--model", "1",
+                                    "--rounds", "5"])
+    t = time.perf_counter()
+    res = train_fl_llm.run(args)
+    dt = time.perf_counter() - t
+    rows = train_fl_llm.report(args, res)
+    log(f"[examples] train_fl_llm: {res['param_count']:,} params, 5 rounds "
+        f"in {res['seconds']:.1f} s of engine run ({dt:.1f} s with the "
+        f"rank's start), launches {nonzero(res['launches'])} [{card}]")
+    if (train_fl_llm.N_CLIENTS, res["param_count"]) != ZOO_FL_SHAPES[1]:
+        raise AssertionError(f"[examples] train_fl_llm folds a "
+                             f"({train_fl_llm.N_CLIENTS}, "
+                             f"{res['param_count']}) block, not the "
+                             f"{ZOO_FL_SHAPES[1]} [zoo-fl] held")
+    bad = [k for k, v in res["metrics"].items()
+           if not np.isfinite(np.asarray(v, np.float64)).all()]
+    if bad or not (res["launches"]["similarity_stats"] > 0
+                   and res["launches"]["masked_agg_update"] > 0):
+        raise AssertionError(f"[examples] train_fl_llm: non-finite {bad}, "
+                             f"launches {res['launches']}")
+    example_bar(rows[-1]["tpr"] == 1.0, "train_fl_llm detection",
+                f"last eval (round {rows[-1]['round']}) TPR "
+                f"{rows[-1]['tpr']}", lambda: train_fl_llm_held(train_fl_llm))
+    del res, params, card_params
+    torch.cuda.empty_cache()
+    log(f"[examples] {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+DRYRUN_TOLERANCE = 0.10          # the census's peak against [mesh]'s
+
+
+def phase_dryrun(card, step_peaks):
+    """The dry run on the card's host with fake CUDA tensors: two
+    combinations through its CLI, allocating nothing on the card; then
+    its census of [mesh]'s round step (h2o-danube-1.8b, one client of
+    STEP_SEQ tokens, fp32 updates, a world-1 fake group's 1 x 1 mesh):
+    the predicted temp bytes against the peak [mesh] measured above the
+    bytes held, within DRYRUN_TOLERANCE."""
+    import io
+
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_fl_round_step
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    for shape in ("decode_32k", "train_4k"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = dryrun.main(["--arch", "h2o-danube-1.8b", "--shape", shape,
+                              "--mesh", "pod"])
+        out = buf.getvalue()
+        for line in filter(None, map(str.strip, out.splitlines())):
+            log(f"[dryrun] {line}")
+        if rc != 0 or "[ok  ]" not in out or dist.is_initialized():
+            raise AssertionError(f"[dryrun] {shape}: rc {rc}")
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != held:
+        raise AssertionError(f"[dryrun] allocated {held} -> "
+                             f"{torch.cuda.memory_allocated()} bytes")
+
+    dcfg = configs.get("h2o-danube-1.8b")
+    with dryrun.fake_group(1):
+        mesh = make_host_mesh(1, 1)
+        with FakeTensorMode():
+            params = dryrun.fake_tree(models.init(None, dcfg, "meta"), DEV)
+            inputs = round_step_inputs(torch.empty(
+                (1, STEP_SEQ), dtype=torch.int64, device=DEV))
+            step = make_fl_round_step(dcfg, mesh, lr=STEP_LR,
+                                      compression="f32")
+            rec = dryrun.trace(step, params, inputs)
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != held:
+        raise AssertionError(f"[dryrun] the census allocated "
+                             f"{torch.cuda.memory_allocated() - held} bytes")
+    if rec["ops"]["custom-call"] != 0 or rec["collective_bytes"] != 0.0:
+        raise AssertionError(f"[dryrun] census ops {rec['ops']}")
+    pred = rec["memory"]["temp_size_in_bytes"] / 2 ** 30
+    meas = step_peaks[0]
+    log(f"[dryrun] census of [mesh]'s round step: predicted peak "
+        f"{pred:.3f} GiB above the arguments "
+        f"({rec['memory']['argument_size_in_bytes'] / 2 ** 30:.3f} GiB), "
+        f"measured {meas:.3f} GiB in [mesh] ({step_peaks[1]:.3f} GiB in "
+        f"its second step), {abs(pred - meas) / meas * 100:.2f} % apart; "
+        f"flops {rec['cost']['flops']:.4e}, bytes "
+        f"{rec['cost']['bytes accessed']:.4e}, ops {rec['ops']} "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    bar(abs(pred - meas) <= DRYRUN_TOLERANCE * meas,
+        f"[dryrun] census {pred:.3f} GiB against [mesh]'s {meas:.3f} GiB")
 
 
 def main():
@@ -3991,9 +4282,13 @@ def main():
     zoo = phase_zoo_fl(card)
     # slice 12 (S6b): the client x model mesh, a 1 x 1 mesh on the card,
     # held against [zoo-fl]'s runs
-    phase_mesh(card, zoo)
+    step_peaks = phase_mesh(card, zoo)
     del zoo
     phase_card_vs_cpu_s6a(card)
+    # slice 13 (S6c + examples): the five examples, then the dry run and
+    # its census of [mesh]'s round step
+    phase_examples(card)
+    phase_dryrun(card, step_peaks)
     check_capture_failure(card)
     kernels = []
     for name, meta in KERNEL_META.items():

@@ -122,8 +122,9 @@ def self_attention(x, p, cfg: ModelConfig, positions, window=None,
 
     - cache is None            -> forward; new_cache is the (k, v) computed.
     - cache given, x is 1 tok  -> decode at absolute position
-      ``cache_index`` (an int): k and v are written into the cache IN
-      PLACE (at ``cache_index % C`` for a sliding-window ring buffer), and
+      ``cache_index`` (an int, or a 0-d integer tensor, which is never
+      read on the host): k and v are written into the cache IN PLACE (at
+      ``cache_index % C`` for a sliding-window ring buffer), and
       new_cache holds the same tensors.  The reference donates the cache
       to its decode step, so nothing reads the old contents.
     """
@@ -149,12 +150,17 @@ def self_attention(x, p, cfg: ModelConfig, positions, window=None,
                            cfg.attn_chunk, cfg.logit_softcap)
         new_cache = {"k": k, "v": v}
     else:
-        t = int(cache_index)
+        t = cache_index
         ck, cv = cache["k"], cache["v"]
         C = ck.shape[1]
         slot = t % C if window is not None else t
-        ck[:, slot:slot + S] = k
-        cv[:, slot:slot + S] = v
+        if isinstance(t, torch.Tensor):
+            at = torch.arange(S, dtype=torch.int64, device=x.device) + slot
+            ck.index_copy_(1, at, k.to(ck.dtype))
+            cv.index_copy_(1, at, v.to(cv.dtype))
+        else:
+            ck[:, slot:slot + S] = k
+            cv[:, slot:slot + S] = v
         idx = torch.arange(C, dtype=torch.int64, device=x.device)[None, :]
         if window is not None:
             # entry idx holds the largest position p <= t with p % C == idx

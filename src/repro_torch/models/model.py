@@ -116,7 +116,8 @@ def _write_into(dst, src) -> None:
     if isinstance(dst, dict):
         for k in dst:
             _write_into(dst[k], src[k])
-    elif src.data_ptr() != dst.data_ptr():
+    elif not (src.untyped_storage() is dst.untyped_storage()
+              and src.storage_offset() == dst.storage_offset()):
         dst.copy_(src)
 
 
@@ -406,13 +407,20 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, cache_index):
-    """token: (B,1) integer; cache_index: the absolute position (int).
+    """token: (B,1) integer; cache_index: the absolute position, an int
+    or a 0-d integer tensor (never read on the host, so a step on the card
+    does not wait for it).
 
     Returns (logits (B,1,V), new_cache).  The cache is updated IN PLACE
     and new_cache holds the same tensors: the reference donates it."""
     B = token.shape[0]
-    t = int(cache_index)
-    positions = torch.full((B, 1), t, dtype=torch.int64, device=token.device)
+    t = cache_index
+    if isinstance(t, torch.Tensor):
+        positions = torch.zeros((B, 1), dtype=torch.int64,
+                                device=token.device) + t
+    else:
+        positions = torch.full((B, 1), int(t), dtype=torch.int64,
+                               device=token.device)
     x = _embed(params, cfg, token)
     new_prelude = []
     for bp, pc in zip(params.get("prelude", []), cache.get("prelude", [])):

@@ -81,7 +81,9 @@ def apply_moe(x: torch.Tensor, p, cfg: ModelConfig):
     eids = idx.reshape(-1)                                    # (t*K,)
     order = torch.argsort(eids, stable=True)
     sorted_eids = eids[order]
-    counts = torch.bincount(eids, minlength=E)
+    # bincount would read its largest id on the host to size its output
+    counts = torch.zeros((E,), dtype=torch.int64, device=dev).scatter_add_(
+        0, eids, torch.ones_like(eids))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * K, device=dev) - starts[sorted_eids]
     keep = pos < C

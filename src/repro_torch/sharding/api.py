@@ -39,6 +39,7 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..convert import leaf_paths, unflatten_like
 
@@ -81,6 +82,7 @@ def use_mesh(mesh):
 # ----------------------------------------------------------------------
 
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
+_RECORDS = []     # the lists of the active record_collectives() blocks
 
 
 def collective_counts() -> dict:
@@ -88,9 +90,34 @@ def collective_counts() -> dict:
     return dict(COLLECTIVES)
 
 
+@contextlib.contextmanager
+def record_collectives():
+    """Yields a list to which every :func:`all_reduce`/:func:`all_gather`
+    inside the block appends ``{"kind", "dtype", "shape", "group_size"}``
+    (the HLO kind, the wire dtype, the input's shape), the input of
+    ``launch.hlo.collective_stats``.  Blocks nest; each sees its own
+    calls."""
+    out = []
+    _RECORDS.append(out)
+    try:
+        yield out
+    finally:
+        # by identity: two blocks' lists may be equal
+        del _RECORDS[next(i for i, r in enumerate(_RECORDS) if r is out)]
+
+
+def _record(kind: str, x: torch.Tensor, group) -> None:
+    if _RECORDS:
+        rec = {"kind": kind, "dtype": x.dtype, "shape": tuple(x.shape),
+               "group_size": dist.get_world_size(group)}
+        for out in _RECORDS:
+            out.append(dict(rec))
+
+
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """SUM-reduce ``x`` in place over ``group``; returns ``x``."""
     COLLECTIVES["all_reduce"] += 1
+    _record("all-reduce", x, group)
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
@@ -102,6 +129,7 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     src = x.contiguous()
     if src.dtype == torch.bool:
         src = src.to(torch.uint8)
+    _record("all-gather", src, group)
     out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, src, group=group)
     out = torch.stack(out)
@@ -142,7 +170,9 @@ def _client_axis_size(mesh) -> int:
     return math.prod(sizes[a] for a in _client_axes_in(mesh))
 
 
-_CLIENT_GROUPS = {}
+# by the mesh's identity: DeviceMesh compares by layout, so a mesh of a
+# later process group would find an earlier, destroyed group's entry
+_CLIENT_GROUPS = WeakIdKeyDictionary()
 
 
 def client_group(mesh=None):

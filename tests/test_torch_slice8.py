@@ -615,7 +615,8 @@ CENSUS = ["core/aggregators", "core/diversefl", "core/attacks",
           "models/config", "models/layers", "models/attention",
           "models/mamba", "models/moe", "models/frontends", "models/model",
           "launch/observe", "launch/serve", "sharding/api", "launch/mesh",
-          "launch/train", "launch/shapes"] + [
+          "launch/train", "launch/shapes", "launch/dryrun",
+          "launch/hlo"] + [
     "configs/" + a for a in ("gemma_2b", "whisper_medium", "deepseek_moe_16b",
                              "kimi_k2_1t_a32b", "h2o_danube_1_8b",
                              "granite_20b", "llama_3_2_vision_90b",
@@ -628,6 +629,11 @@ CENSUS = ["core/aggregators", "core/diversefl", "core/attacks",
 # that the kernel tests and chip_smoke.py hold against the plain versions.
 # Each name the port leaves out, with the ROADMAP item that takes it:
 EXCLUDED = {}
+# Each name the port carries under another, with why: the reference's
+# roofline figures are the TPU v5e's inter-chip links, the port's the
+# H100's NVLink
+RENAMED = {"launch/hlo.ICI_BW_PER_LINK": "NVLINK_BW_PER_LINK",
+           "launch/hlo.ICI_LINKS": "NVLINK_LINKS"}
 
 
 def _public_names(path):
@@ -659,9 +665,26 @@ def test_every_public_reference_name_has_a_port_counterpart():
                 seen.add(full)
                 assert obj is None, f"{full} is ported: drop its exclusion"
                 assert re.match(r"S\d", EXCLUDED[full])
+            elif full in RENAMED:
+                seen.add(full)
+                assert obj is None, f"the port still has {full}"
+                assert getattr(port, RENAMED[full], None) is not None, \
+                    f"the port lacks {mod}.{RENAMED[full]}"
             else:
                 assert obj is not None, f"the port lacks {full}"
-    assert seen == set(EXCLUDED), set(EXCLUDED) - seen
+    assert seen == set(EXCLUDED) | set(RENAMED), \
+        (set(EXCLUDED) | set(RENAMED)) - seen
+
+
+def test_every_reference_example_has_a_port_entry_point():
+    """Each ``examples/*.py`` of the reference has a module of the same
+    name in ``repro_torch.examples`` with a ``main``."""
+    names = sorted(p.stem for p in (ROOT / "examples").glob("*.py"))
+    assert names == ["attack_gallery", "paper_grid", "quickstart",
+                     "serve_decode", "train_fl_llm"]
+    for name in names:
+        mod = importlib.import_module("repro_torch.examples." + name)
+        assert callable(getattr(mod, "main", None)), name
 
 
 def test_ported_names_are_exported_like_the_reference():
