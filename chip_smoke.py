@@ -191,7 +191,24 @@ Phases (any failure raises and the script exits non-zero):
                256-rank group, fake CUDA tensors, nothing allocated), and
                its census of [mesh]'s round step within 10 % of the peak
                [mesh] measured
- 14. result  - a capture that reads the card on the host fails by name; a
+ 14. slice 14 (S6d) - after [dryrun].  [mesh-ms2]: the client x model
+               mesh with a model axis of 2, two gloo ranks on the one card
+               (NCCL holds one rank a card; gloo carries the CUDA tensors
+               through the host), a 1 x 2 ("data", "model") mesh.
+               h2o-danube-1.8b at its published widths, 4 of 24 layers
+               (both ranks hold the whole params), [zoo-fl]'s run under
+               compression int8 and bf16, each rank holding its (N, L)
+               residual columns; [async]'s intermittent (0.2, cohort 0.9)
+               and straggler (32-slot slab, each rank its (B, L) row)
+               runs; each against its meshless run on the card: masks
+               and stale counts equal, params within 1e-5·max|x| + 1e-6
+               (bf16, async) or the int8 bar of ms2_bar; one host sync a
+               run; ms/round, peak GiB a rank, collectives a round,
+               launches.  Then similarity_stats, masked_agg_update (fp32
+               and bf16 payloads) and dequant_fold_update at the rank-row
+               shapes (1, 179,907,840), (64, L) and (32, L) of the 3-NN
+               against their plain versions, timed cold and warm
+ 15. result  - a capture that reads the card on the host fails by name; a
                ``kernels`` JSON line, then ``{"ok": true, ...}`` last
 """
 import contextlib
@@ -4232,6 +4249,389 @@ def phase_dryrun(card, step_peaks):
         f"[dryrun] census {pred:.3f} GiB against [mesh]'s {meas:.3f} GiB")
 
 
+# ----------------------------------------------------------------------
+# slice 14 (S6d): lossy codecs and async rounds on a model axis > 1, two
+# gloo ranks on the one card
+# ----------------------------------------------------------------------
+
+# h2o-danube-1.8b at its published widths, 4 of its 24 layers: both ranks
+# hold the whole params on the one card, and [mesh]'s 24-layer run peaks at
+# 55 GiB in one process.  All its leaves are even and D/2 is a QBLOCK
+# multiple, so both lossy codecs take the 1 x 2 mesh
+MS2_LAYERS = 4
+MS2_D = 359_815_680
+MS2_CODECS = ("int8", "bf16")
+MS2_ASYNC = ("intermittent", "straggler")
+MS2_TIMEOUT = 900                # the two ranks' spawn, in seconds
+MS2_THREADS = 4                  # torch threads a rank (8 cores, 2 ranks)
+
+
+def ms2_danube():
+    """h2o-danube-1.8b cut to MS2_LAYERS layers, for [zoo-fl]'s run."""
+    cfg = dataclasses.replace(configs.get("h2o-danube-1.8b"),
+                              n_layers=MS2_LAYERS)
+    model = fl_zoo_model(cfg, seq_len=ZOO_SEQ)
+    if model.param_count() != MS2_D:
+        raise AssertionError(f"[mesh-ms2] h2o-danube-1.8b at {MS2_LAYERS} "
+                             f"layers has {model.param_count()} params")
+    return model
+
+
+def ms2_lossy_run(model, codec, mesh=None, guard=True):
+    """[zoo-fl]'s run (2 clients in blocks of 1, 2 rounds, sign_flip,
+    streaming diversefl) under ``codec``, warmed once, then timed; the
+    codec input's largest |value| per client and round is recorded (device
+    tensors, read after the run).  -> (history, ms/round, peak GiB above
+    the run's start, host syncs, launches, collectives, the maxima)."""
+    from repro_torch import sharding
+    cfg = zoo_fl_cfg(compression=codec)
+    fed = make_zoo_federation(model, cfg, torch.Generator(
+        device=DEV).manual_seed(17 + SEED), per_client=ZOO_PER_CLIENT,
+        n_test=16, device=DEV)
+    eng = RoundEngine(model, fed, cfg, mesh=mesh)
+    mode_run(model, fed, cfg, "engine", engine=eng, guard=guard,
+             schedule=constant_lr(ZOO_LR))
+    vmax, real = [], fl_simulator.encode_with_feedback
+
+    def recorded(codec_, u, resid):
+        out = real(codec_, u, resid)
+        vmax.append((u.to(torch.float32) + resid).abs().amax(-1))
+        return out
+    fl_simulator.encode_with_feedback = recorded
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    before = sharding.collective_counts()
+    try:
+        h, ms, syncs, counts, _, _ = mode_run(
+            model, fed, cfg, "engine", engine=eng, guard=guard,
+            schedule=constant_lr(ZOO_LR))
+    finally:
+        fl_simulator.encode_with_feedback = real
+    after = sharding.collective_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    coll = {k: after[k] - before[k] for k in after}
+    return h, ms, peak, syncs, counts, coll, torch.stack(vmax)
+
+
+def ms2_async_run(tag, mesh=None, guard=True):
+    """[async]'s run ``tag`` (the 3-NN, 256 clients in blocks of 64,
+    sign_flip, 40 rounds of streaming diversefl) warmed once, then timed.
+    -> (history, ms/round, peak GiB above the run's start, host syncs,
+    launches, collectives, the audit's stale counts, the blocked layout's
+    row width at ms = 2)."""
+    from repro_torch import sharding
+    data, tx, ty, kw = async_federation()
+    model = mlp3()
+    fault = FaultConfig(kind=tag, rate=ASYNC_RATE,
+                        **({"delay": 1} if tag == "straggler" else {}))
+    extra = dict(fault=fault, cohort_participation=0.9)
+    if tag == "straggler":
+        extra.update(staleness_buffer=ASYNC_BUFFER, telemetry=True)
+    cfg = FLConfig(**{**kw, **extra, "rounds": 40, "aggregator": "diversefl",
+                      "attack": AttackConfig(kind="sign_flip"),
+                      "eval_every": 40, "seed": SEED})
+    res = []
+    for _ in range(2):
+        fed = Federation.create(model, data, tx, ty, cfg, torch.Generator(
+            device="cuda").manual_seed(100 + SEED))
+        eng = RoundEngine(model, fed, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        before = sharding.collective_counts()
+        h, ms, syncs, counts, _, _ = mode_run(model, fed, cfg, "engine",
+                                              engine=eng, guard=guard)
+        after = sharding.collective_counts()
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        res.append((h, ms, peak, syncs, counts,
+                    {k: after[k] - before[k] for k in after},
+                    stale_counts(fed)))
+    width = sharding.blocked_layout(h["params"], 2).L
+    return res[-1] + (width,)
+
+
+def ms2_bar(vmax, rounds):
+    """The int8 bar of a mesh run against the meshless run of the same
+    config, on the params before their rounding.  The two quantise in
+    different QBLOCK groups (along L on the mesh, along D off it), each
+    to within half its group's scale, so one client's decode in round t
+    differs by at most its largest scale s_t = max|v|/127 plus what its
+    error feedback carries from the rounds before (at most s_r each); a
+    round moves the params by its kept clients' mean, so by at most
+    Σ_t Σ_i Σ_{r<=t} s_r,i (a kept share of at most 1).  ``vmax``
+    (rounds·clients,) holds the largest |v| of each encode in order (one
+    client a block)."""
+    s = vmax.reshape(rounds, -1).double() / 127.0
+    return float(sum(s[:t + 1].sum() for t in range(rounds)))
+
+
+def ms2_within(p, w, codec_bar, rounds):
+    """Params ``p`` against the meshless ``w`` (on the host): under int8,
+    within ``codec_bar`` plus one bf16 ulp of the param a round (each
+    round rounds the params to bf16 once); else within 1e-5·max|x| +
+    1e-6.  -> (max |err|, within)."""
+    w = w.to(p.device).float()
+    e = (p.float() - w).abs()
+    if codec_bar is None:
+        lim = 1e-5 * w.abs().max() + 1e-6
+    else:
+        a = torch.maximum(p.float().abs(), w.abs())
+        ulp = torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - 8)
+        lim = codec_bar * 1.0001 + rounds * ulp
+    return float(e.max()), bool((e <= lim).all())
+
+
+def ms2_rank(rank, world, path):
+    """One of the two gloo ranks on the card: a 1 x 2 ("data", "model")
+    mesh; the lossy and async runs on it, each held against the meshless
+    run in ``path`` (written by :func:`phase_mesh_ms2`).  -> a summary a
+    run."""
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(1, 2)
+    if (mesh.device_type, tuple(mesh.shape)) != (torch.device(DEV).type,
+                                                 (1, 2)):
+        raise AssertionError(f"[mesh-ms2] built {mesh}")
+    want = torch.load(path, weights_only=False, mmap=True)
+    out = {"s": sharding.model_index(mesh)}
+    model = ms2_danube()
+    for codec in MS2_CODECS:
+        h, ms, peak, syncs, counts, coll, vmax = ms2_lossy_run(
+            model, codec, mesh, guard=False)
+        w = want[codec]
+        # the maxima over both ranks' columns: the whole rows'
+        vmax = sharding.all_gather(vmax, sharding.model_group(mesh)).amax(0)
+        bar = ms2_bar(torch.maximum(vmax.cpu(), w["vmax"]), 2) \
+            if codec == "int8" else None
+        errs, over = {}, []
+        for k, p in h["params"].items():
+            errs[k], ok = ms2_within(p, w["params"][k], bar, 2)
+            if not ok:
+                over.append(k)
+        out[codec] = dict(
+            ms=ms, peak=peak, syncs=syncs, counts=counts, coll=coll,
+            err=max(errs.values()), over=over, bar=bar,
+            masks=ms2_same_masks(h, w["hist"]), acc=h["acc"][-1])
+        del h
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    for tag in MS2_ASYNC:
+        h, ms, peak, syncs, counts, coll, stale, _ = ms2_async_run(
+            tag, mesh, guard=False)
+        w = want[tag]
+        errs, over = {}, []
+        for k, p in h["params"].items():
+            errs[k], ok = ms2_within(p, w["params"][k], None, 40)
+            if not ok:
+                over.append(k)
+        out[tag] = dict(ms=ms, peak=peak, syncs=syncs, counts=counts,
+                        coll=coll, err=max(errs.values()), over=over,
+                        masks=ms2_same_masks(h, w["hist"]),
+                        stale=stale == w["stale"], stale_counts=stale,
+                        acc=h["acc"][-1])
+        del h
+        torch.cuda.empty_cache()
+    return out
+
+
+def ms2_same_masks(h, w):
+    """Detection rates, C1 signs and C2 pass/fail of two histories equal
+    at every eval point."""
+    if h["mask_tpr"] != w["mask_tpr"] or h["mask_fpr"] != w["mask_fpr"]:
+        return False
+    for a, b in zip(h["c1c2"], w["c1c2"]):
+        a, b = np.asarray(a), np.asarray(b)
+        if not (np.array_equal(np.sign(a), np.sign(b)) and np.array_equal(
+                (np.abs(a) > 0.5) & (np.abs(a) < 2.0),
+                (np.abs(b) > 0.5) & (np.abs(b) < 2.0))):
+            return False
+    return True
+
+
+def ms2_kernel_rows(card, L_lossy, L_async):
+    """The three kernels of this slice's path at the rank-row shapes its
+    runs launch, each held against its plain version and timed cold and
+    warm beside the bound and the library call: the lossy runs' (1, L)
+    (similarity on the decoded row, the bf16 fold, the int8 fold; the
+    fp32 fold beside them) and the async runs' (64, L) block and (32, L)
+    slab (similarity, the fp32 fold).  -> {(name, shape): row}."""
+    rows = {}
+    gen = torch.Generator(device=DEV).manual_seed(1414)
+    int8 = get_codec("int8")
+    for n, d, lossy in ((1, L_lossy, True), (ASYNC_CHUNK, L_async, False),
+                        (ASYNC_BUFFER, L_async, False)):
+        iters, warm = (30, 5) if lossy else (200, 20)
+        z = update_rows(n, d, gen) if lossy else \
+            torch.randn((n, d), generator=gen, device=DEV)
+        g = z + 0.5 * torch.randn((n, d), generator=gen, device=DEV)
+        rows["similarity_stats", (n, d)] = time_kernel(
+            card, "similarity_stats", (n, d),
+            (lambda z, g, S: similarity_cuda(z, g),
+             lambda z, g, S: similarity_plain(z, g),
+             lambda z, g, S: torch.bmm(S, S.transpose(1, 2))),
+            (z, g, torch.stack([z, g], dim=1)),
+            bound_ms(2 * n * d * 4 + n * 3 * 4, 6 * n * d),
+            check_similarity(z, g), iters, warm)
+        del g
+        torch.cuda.empty_cache()
+        w = (torch.rand((n,), generator=gen, device=DEV) < 0.8).float()
+        acc = torch.randn((d,), generator=gen, device=DEV)
+        rows["masked_agg_update", (n, d)] = time_kernel(
+            card, "masked_agg_update", (n, d),
+            (masked_agg_update_cuda, masked_agg_update_plain,
+             lambda u, w, acc: torch.addmv(acc, u.T, w)), (z, w, acc),
+            bound_ms(n * d * 4 + n * 4 + 2 * d * 4, 2 * n * d),
+            check_update(z, w, acc), iters, warm)
+        if lossy:
+            u16 = z.to(torch.bfloat16)
+            rows["masked_agg_update bf16", (n, d)] = time_kernel(
+                card, "masked_agg_update bf16", (n, d),
+                (masked_agg_update_cuda, masked_agg_update_plain,
+                 lambda u, w, a: torch.addmv(a, u.to(torch.float32).T, w)),
+                (u16, w, acc), bound_ms(2 * n * d + 4 * n + 8 * d, 2 * n * d),
+                check_update(u16, w, acc), iters, warm)
+            del u16
+            enc = int8.encode(z)
+            q, scale = enc["q"], enc["scale"]
+            del enc, z
+            torch.cuda.empty_cache()
+            rows["dequant_fold_update", (n, d)] = time_kernel(
+                card, "dequant_fold_update", (n, d),
+                (lambda q, s, w, a: dequant_fold_update_cuda(q, s, w, a,
+                                                             QBLOCK),
+                 lambda q, s, w, a: dequant_fold_update_plain(q, s, w, a,
+                                                              QBLOCK),
+                 lambda q, s, w, a: torch.addmv(
+                     a, dequant_int8(q, s, QBLOCK).T, w)),
+                (q, scale, w, acc),
+                bound_ms(n * d + 4 * n * scale.shape[1] + 4 * n + 8 * d,
+                         3 * n * d),
+                check_dequant(q, scale, w, acc), iters, warm)
+            del q, scale
+        else:
+            del z
+        del w, acc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_mesh_ms2(card):
+    """The client x model mesh with a model axis of 2: two gloo ranks on
+    the one card (NCCL holds one rank a card), a 1 x 2 mesh.  The lossy
+    codecs on h2o-danube-1.8b at 4 layers and [async]'s two fault models,
+    each against its meshless run on the card; then the kernels at the
+    rank-row shapes those runs launch.  -> the kernel rows."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_local
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    want, base = {}, {}
+    model = ms2_danube()
+    L_lossy = MS2_D // 2
+    for codec in MS2_CODECS:
+        h, ms, peak, syncs, counts, coll, vmax = ms2_lossy_run(model, codec)
+        exp = stream_counts("diversefl", codec, 2, 2)
+        if counts != exp or syncs != 1 or sum(coll.values()):
+            raise AssertionError(f"[mesh-ms2] meshless {codec}: launches "
+                                 f"{counts} (want {exp}), {syncs} syncs, "
+                                 f"collectives {coll}")
+        finite_history(f"[mesh-ms2] meshless {codec}", h)
+        want[codec] = {"params": {k: v.cpu() for k, v in
+                                  h["params"].items()},
+                       "hist": {k: h[k] for k in ("acc", "mask_tpr",
+                                                  "mask_fpr", "c1c2")},
+                       "vmax": vmax.cpu()}
+        base[codec] = (ms, peak, h["acc"][-1], rates(h))
+        del h
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    for tag in MS2_ASYNC:
+        h, ms, peak, syncs, counts, coll, stale, L_async = ms2_async_run(tag)
+        exp = stream_counts("diversefl", "f32", 40, ASYNC_N // ASYNC_CHUNK
+                            + (tag == "straggler"))
+        if counts != exp or syncs != 1 or sum(coll.values()):
+            raise AssertionError(f"[mesh-ms2] meshless {tag}: launches "
+                                 f"{counts} (want {exp}), {syncs} syncs, "
+                                 f"collectives {coll}")
+        want[tag] = {"params": {k: v.cpu() for k, v in h["params"].items()},
+                     "hist": {k: h[k] for k in ("acc", "mask_tpr",
+                                                "mask_fpr", "c1c2")},
+                     "stale": stale}
+        base[tag] = (ms, peak, h["acc"][-1], rates(h), counts)
+        del h
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "meshless.pt")
+        torch.save(want, path)
+        t1 = time.perf_counter()
+        ranks = spawn_local(ms2_rank, 2, (path,), backend="gloo",
+                            timeout=MS2_TIMEOUT, threads=MS2_THREADS,
+                            workdir=d)
+        spawn_s = time.perf_counter() - t1
+    if [r["s"] for r in ranks] != [0, 1]:
+        raise AssertionError(f"[mesh-ms2] model ranks "
+                             f"{[r['s'] for r in ranks]}")
+    for name in MS2_CODECS + MS2_ASYNC:
+        lossy = name in MS2_CODECS
+        blocks = 2 if lossy else ASYNC_N // ASYNC_CHUNK + (
+            name == "straggler")
+        exp = stream_counts("diversefl", name if lossy else "f32",
+                            2 if lossy else 40, blocks)
+        for s, r in enumerate(ranks):
+            got = r[name]
+            bad = []
+            if got["counts"] != exp:
+                bad.append(f"launches {got['counts']} (want {exp})")
+            if got["syncs"] != 1:
+                bad.append(f"{got['syncs']} host syncs")
+            if not got["masks"]:
+                bad.append("masks differ from the meshless run's")
+            if got["over"]:
+                bad.append(f"params {got['over']} beyond the "
+                           f"{'bar' if name == 'int8' else 'tolerance'}")
+            if not lossy and not got["stale"]:
+                bad.append(f"stale counts {got['stale_counts']} (meshless "
+                           f"{want[name]['stale']})")
+            if bad:
+                raise AssertionError(f"[mesh-ms2] {name} rank {s}: "
+                                     + "; ".join(bad))
+        rounds = 2 if lossy else 40
+        per_round = {k: v / rounds for k, v in ranks[0][name]["coll"].items()}
+        what = (f"h2o-danube-1.8b {MS2_LAYERS} of 24 layers "
+                f"({MS2_D:,} params bf16, L = {L_lossy:,}), "
+                f"compression={name!r}, 2 clients in blocks of 1, 2 rounds"
+                if lossy else
+                f"3-NN N = {ASYNC_N}, blocks of {ASYNC_CHUNK}, {name}, "
+                f"40 rounds")
+        bar = (f"params within the int8 bar {ranks[0][name]['bar']:.4g} "
+               f"+ one bf16 ulp of the param a round (ms2_bar), max |err| "
+               if name == "int8" else
+               "params within 1e-5·max|x| + 1e-6, max |err| ")
+        log(f"[mesh-ms2] {what}: 1 x 2 mesh of two gloo ranks on the one "
+            f"card, ms/round rank 0 {ranks[0][name]['ms']:.3f}, rank 1 "
+            f"{ranks[1][name]['ms']:.3f} (meshless {base[name][0]:.3f}); "
+            f"peak GiB above the run's start rank 0 "
+            f"{ranks[0][name]['peak']:.3f}, rank 1 "
+            f"{ranks[1][name]['peak']:.3f} (meshless {base[name][1]:.3f}); "
+            f"collectives a round {per_round}; masks equal the meshless "
+            f"run's, {bar}{max(r[name]['err'] for r in ranks):.4g}; acc "
+            f"{ranks[0][name]['acc']:.4f} (meshless {base[name][2]:.4f}), "
+            f"{base[name][3]}"
+            + ("" if lossy else f", stale counts "
+               f"{ranks[0][name]['stale_counts']} as meshless")
+            + f"; launches a rank {nonzero(ranks[0][name]['counts'])}, "
+            f"1 host sync [{card}]")
+    log(f"[mesh-ms2] the two ranks' spawn {spawn_s:.1f} s (two processes "
+        f"share the card's SMs: not a multi-card number) [{card}]")
+    rows = ms2_kernel_rows(card, L_lossy, L_async)
+    log(f"[mesh-ms2] {time.perf_counter() - t0:.1f} s [{card}]")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4289,6 +4689,9 @@ def main():
     # its census of [mesh]'s round step
     phase_examples(card)
     phase_dryrun(card, step_peaks)
+    # slice 14 (S6d): lossy codecs and async rounds on a model axis of 2,
+    # two gloo ranks on the one card, held against the meshless runs
+    phase_mesh_ms2(card)
     check_capture_failure(card)
     kernels = []
     for name, meta in KERNEL_META.items():

@@ -28,10 +28,16 @@ rounds on a client x model ``DeviceMesh`` (``sharding/api.py``): each data
 rank folds its own client blocks and the partial states are gathered
 (``fl/streaming.py``); on a model axis > 1 every rank holds the whole
 params and the federated state is the rank's row of the blocked (ms, L)
-layout.  A 1 x 1 mesh is the meshless
-run: no collective, bit for bit.  A data-axis mesh is bitwise the
-meshless run with ``stream_shards`` equal to its rank count; a model axis
-> 1 agrees to fp tolerance (the criterion statistics sum shard partials).
+layout.  So is the carry's: under a lossy codec the rank holds columns
+``[s·L, (s+1)·L)`` of the (N, D) error-feedback residual plane (the
+reference's plane, flat in blocked element order; lossy codecs need
+pad-free leaves, so ms·L == D), and in async rounds row ``s`` of the
+(B, ms, L) staleness slab, a (B, L) tensor.  The layout is the engine's
+own mesh's, whatever mesh is active when the carry is built.  A 1 x 1
+mesh is the meshless run: no collective, bit for bit.  A data-axis mesh
+is bitwise the meshless run with ``stream_shards`` equal to its rank
+count; a model axis > 1 agrees to fp tolerance (the criterion statistics
+sum shard partials).
 """
 from __future__ import annotations
 
@@ -41,8 +47,9 @@ from typing import Optional
 
 import torch
 
-from ..sharding.api import (all_gather, client_group, get_mesh,
-                            model_shard_count, sweep_put, use_mesh)
+from ..sharding.api import (all_gather, blocked_layout, client_group,
+                            get_mesh, model_index, model_shard_count,
+                            sweep_put, use_mesh)
 from . import telemetry
 from .faults import init_async_state
 from .metrics import make_eval_fn
@@ -169,8 +176,13 @@ class RoundEngine:
     methods; ``batch_mode`` then defaults to ``"segment"`` where the
     config allows it.  ``model_shards`` is the mesh's model-axis size.
     The first run on a model axis > 1 checks the config
-    (``FLConfig.validate_model_sharding``); params stay whole on every
-    rank.
+    (``FLConfig.validate_model_sharding``: streaming, no kernel flags,
+    and for a lossy codec pad-free leaves and QBLOCK | D/ms); params stay
+    whole on every rank.  A model axis > 1 takes every codec and async
+    round the check admits: the carry holds the rank's (N, L) residual
+    columns or (B, L) slab row (:meth:`init_carry`), and ``run_segment``
+    returns them.  ``graph=True`` on a mesh of more than one rank is
+    refused by name.
     """
 
     def __init__(self, model, fed, cfg, *, batch_mode: Optional[str] = None,
@@ -186,9 +198,12 @@ class RoundEngine:
         if graph and self.mesh is not None and self.mesh.size() > 1:
             raise NotImplementedError(
                 f"RoundEngine(graph=True) on a mesh of {self.mesh.size()} "
-                f"ranks: capturing collectives in a CUDA graph is not "
-                f"supported (ROADMAP queue 3); a 1 x 1 mesh captures, or "
-                f"run eager rounds")
+                f"ranks: a captured round would have to capture its "
+                f"collectives, which needs NCCL, and NCCL holds one rank a "
+                f"card; gloo stages CUDA tensors through the host, which a "
+                f"CUDA graph cannot capture.  It waits for a machine with "
+                f"at least two cards (ROADMAP queue 3); a 1 x 1 mesh "
+                f"captures, or run eager rounds")
         self._model_sharding_checked = False
         self.model, self.fed, self.cfg = model, fed, cfg
         self.device = fed.device
@@ -237,32 +252,50 @@ class RoundEngine:
 
     def init_carry(self, params):
         """The round carry for ``params``: bare params; ``(params,
-        zeros(N, d))`` under a lossy codec; ``(params, async state)`` in
-        async rounds."""
-        d = sum(v.numel() for v in params.values())
+        zeros(N, w))`` under a lossy codec; ``(params, async state)`` in
+        async rounds, its slab (B, w).  ``w`` is D, or on a model axis > 1
+        the blocked layout's row width L of the engine's own mesh (never
+        the mesh active at the call)."""
+        return self._init_carry(params, self.model_shards)
+
+    def _init_carry(self, params, ms):
+        if not (self.lossy or self.async_mode):
+            return params
+        w = blocked_layout(params, ms).L if ms > 1 \
+            else sum(v.numel() for v in params.values())
         if self.lossy:
-            return params, torch.zeros((self.cfg.n_clients, d),
+            return params, torch.zeros((self.cfg.n_clients, w),
                                        dtype=torch.float32,
                                        device=self.device)
-        if self.async_mode:
-            return params, init_async_state(self.cfg, (d,), self.device)
-        return params
+        return params, init_async_state(self.cfg, (w,), self.device)
 
     def carry_params(self, carry):
         """The params inside a carry."""
         return carry[0] if (self.lossy or self.async_mode) else carry
 
-    def _ensure_carry(self, carry):
-        """Bare params where a carry is expected start a fresh run."""
-        if (self.lossy or self.async_mode) and isinstance(carry, dict):
-            return self.init_carry(carry)
-        return carry
+    def _ensure_carry(self, carry, ms):
+        """Bare params where a carry is expected start a fresh run.  On a
+        model axis > 1 a whole (N, D) residual plane, in blocked element
+        order (the reference's layout; the ranks' columns side by side),
+        is cut to this rank's (N, L) columns."""
+        if not (self.lossy or self.async_mode):
+            return carry
+        if isinstance(carry, dict):
+            return self._init_carry(carry, ms)
+        if ms <= 1 or not self.lossy:
+            return carry
+        params, resid = carry
+        L = blocked_layout(params, ms).L
+        if resid.shape[-1] == ms * L:
+            s = model_index(self.mesh)
+            resid = resid[:, s * L:(s + 1) * L].clone()
+        return params, resid
 
-    def _prepare_carry(self, carry):
+    def _prepare_carry(self, carry, ms):
         """:meth:`_ensure_carry`, and on a model axis > 1 the config check
         (named errors, once)."""
-        carry = self._ensure_carry(carry)
-        if self.model_shards > 1 and not self._model_sharding_checked:
+        carry = self._ensure_carry(carry, ms)
+        if ms > 1 and not self._model_sharding_checked:
             self._check_model_sharding(self.carry_params(carry))
         return carry
 
@@ -272,15 +305,6 @@ class RoundEngine:
             sum(p.numel() for p in leaves), self.model_shards,
             streaming_fallback=self.streaming_fallback,
             leaf_sizes=tuple(p.numel() for p in leaves))
-        if self.lossy or self.async_mode:
-            what = (f"compression={self.cfg.compression!r}" if self.lossy
-                    else "async rounds (fault/cohort/staleness knobs)")
-            raise NotImplementedError(
-                f"{what} on a model axis > 1 (model_shards="
-                f"{self.model_shards}): the error-feedback residual plane "
-                f"and the staleness slab are not laid out on the blocked "
-                f"(ms, L) rows yet (ROADMAP queue 3); run it on a mesh "
-                f"whose model axis is 1")
         self._model_sharding_checked = True
 
     # --- eager rounds ---------------------------------------------------
@@ -311,7 +335,7 @@ class RoundEngine:
         segment's first round."""
         if scen is None:
             scen = self.default_scenario
-        carry = self._prepare_carry(carry)
+        carry = self._prepare_carry(carry, self.model_shards)
         n = int(lrs.shape[0])
         with use_mesh(self.mesh):
             stack = self._segment_batches(n, generator, draws, 0)
@@ -334,9 +358,12 @@ class RoundEngine:
         On a mesh every rank calls it and gets the same full params and
         metrics."""
         with use_mesh(self.mesh):
-            return self._run_training(carry, generator, lrs, scen, draws)
+            return self._run_training(carry, generator, lrs, scen, draws,
+                                      self.model_shards)
 
-    def _run_training(self, carry, generator, lrs, scen, draws):
+    def _run_training(self, carry, generator, lrs, scen, draws, ms):
+        """The run on the active mesh, whose model axis is ``ms``: the
+        engine's own, or 1 for a sweep's cells, which run off-mesh."""
         if scen is None:
             scen = self.default_scenario
         R = int(lrs.shape[0])
@@ -349,7 +376,7 @@ class RoundEngine:
             params, metrics, tel = self._run_graph(carry, generator, lrs,
                                                    scen, len(segs))
         else:
-            carry = self._prepare_carry(carry)
+            carry = self._prepare_carry(carry, ms)
             bufs, tbufs = _Buffers(len(segs)), _Buffers(R)
             for e, (start, n) in enumerate(segs):
                 stack = self._segment_batches(n, generator, draws, start)
@@ -391,7 +418,7 @@ class RoundEngine:
             for i in mine:
                 params, generator, lrs, scen = cells[i]
                 p, _, m, eval_rounds = self._run_training(
-                    params, generator, lrs, scen, None)
+                    params, generator, lrs, scen, None, 1)
                 params_out.append(p)
                 metrics_out.append(m)
         if len(mine) == G:
@@ -414,7 +441,7 @@ class RoundEngine:
         from ..kernels import ops as kops
         dev = self.device
         g = {"gen": torch.Generator(device=dev),
-             "carry": _clone_tree(self._ensure_carry(carry)),
+             "carry": _clone_tree(self._ensure_carry(carry, 1)),
              "scen": _clone_tree(scen),
              "lrs": torch.zeros((rounds,), dtype=torch.float32, device=dev),
              "ctr": torch.zeros((1,), dtype=torch.int64, device=dev),
@@ -466,7 +493,7 @@ class RoundEngine:
         if self._g is None or self._g["rounds"] < R:
             self._capture(carry, generator, scen, max(R, self.cfg.rounds))
         g = self._g
-        carry = self._ensure_carry(carry)
+        carry = self._ensure_carry(carry, 1)
         _copy_tree(g["carry"], carry)
         _copy_tree(g["scen"], scen)
         g["lrs"][:R].copy_(lrs)

@@ -163,8 +163,12 @@ def init_async_state(cfg, flat_shape, device=None) -> Optional[dict]:
     """The async part of the round carry, or None when the config's async
     machinery is off.  ``r`` counts rounds (it indexes the cohort chain);
     with ``staleness_buffer`` B > 0 the O(B·D) pending slab: ``u`` the
-    late updates, ``cid`` their client ids, ``ttl`` rounds until landing,
-    ``on`` slot occupancy."""
+    late updates, (B, *flat_shape), ``cid`` their client ids, ``ttl``
+    rounds until landing, ``on`` slot occupancy.  ``flat_shape`` is one
+    client's flat update, ``(D,)``; on a model axis ms > 1 it is the
+    rank's row of the blocked layout, ``(L,)``, padding included
+    (``RoundEngine.init_carry`` sizes it from the engine's own mesh), and
+    only ``u`` differs between ranks."""
     if not cfg.async_rounds:
         return None
     state = {"r": torch.zeros((), dtype=torch.int64, device=device)}

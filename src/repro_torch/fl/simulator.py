@@ -16,6 +16,10 @@ With ``streaming=True`` and an associative rule, Steps 2-5 run one
 lossy ``compression`` codec (``fl/compression.py``) every selected
 client sends ``enc(u + resid)`` and keeps the error in a per-client
 residual (error feedback); the round then carries ``(params, resid)``.
+On a client x model mesh whose model axis is ms > 1 every rank folds row
+``s`` of the blocked (ms, L) layout (``sharding/api.py``), and its carry
+is that row's too: the (N, L) residual columns, encoded in the codec's
+groups along L, and the (B, L) row of the staleness slab.
 
 Training runs through the round engine (``fl/engine.RoundEngine``) by
 default: the whole run is dispatched without a host read, every eval
@@ -452,7 +456,11 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     (N, D) fp32 error-feedback residuals, updated in place (a copy per
     round would double the largest tensor of the run) and returned; or
     ``(params, astate)`` in async rounds, ``astate`` the
-    ``fl/faults.init_async_state`` dict.  ``lr`` is a number or a 0-d fp32
+    ``fl/faults.init_async_state`` dict.  Under an active mesh whose model
+    axis is ms > 1 the rank's share replaces D by the blocked layout's
+    row width L: ``resid`` is (N, L) (lossy codecs need pad-free leaves,
+    so ms·L == D) and the slab ``astate["u"]`` (B, L); the rest of
+    ``astate`` is whole on every rank.  ``lr`` is a number or a 0-d fp32
     tensor (the same bits).  ``scen`` holds the run's operands
     (:func:`make_scenario`; default: this federation's).
 
@@ -468,7 +476,8 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     given explicitly instead: ``batch_idx`` (N, E·m) (or the gathered
     ``batch`` stacks (N, E·m, ...), (N, E·m)), ``sel`` (C,) client
     ids, ``fault_rows`` (N,) bool, ``noise`` (C, D) standard normal,
-    ``slab_noise`` (B, D), ``resample_ids`` (C, s_R) client ids.
+    ``slab_noise`` (B, D) (whole on a model axis too: the attack hits the
+    whole update before the cut), ``resample_ids`` (C, s_R) client ids.
 
     No step of the round reads a device value on the host, so a run
     dispatches without waiting on the card and one round can be captured
@@ -658,7 +667,11 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                         else layout.rows(G_blk, srow)
                 if lossy:
                     # the client boundary: only the encoded dict enters
-                    # the fold; the new residual rows ride out beside it
+                    # the fold; the new residual rows ride out beside it.
+                    # On a model axis > 1 the row, the residual and the
+                    # int8 groups are the rank's (c, L) columns (QBLOCK | L
+                    # is validated); the guides were quantised per tensor
+                    # before the cut, so their layout does not matter
                     enc, _, new_resid = encode_with_feedback(
                         codec, U_blk, resid[sel_b])
                     return enc, ctx_blk, new_resid
@@ -676,8 +689,10 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                             # the discount rides the 0/1 valid channel
                             "valid": landed.to(torch.float32) * discount_w}
                 if entry.needs_guides:
-                    land_ctx["guide"] = fed.server.compute_guides(
+                    G_land = fed.server.compute_guides(
                         params, grad_fn, lr, E, select=land_cid)
+                    land_ctx["guide"] = G_land if layout is None \
+                        else layout.rows(G_land, srow)
                 extra_state, stale_logs = rule.update_block(
                     rule.init(d, dev), astate["u"], land_ctx)
 
@@ -700,7 +715,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                               stale_logs)
                 astate = refill_buffer(params, astate, xb, yb, lr, scen,
                                        strag, landed, generator, slab_noise,
-                                       d, logs)
+                                       D, logs, layout, srow)
         else:
             # ---- Step 2: local SGD, client_chunk clients at a time ----
             updates = chunked_vmap(
@@ -743,12 +758,15 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
         return new_params, logs
 
     def refill_buffer(params, astate, xb, yb, lr, scen, strag, landed,
-                      generator, slab_noise, d, logs):
+                      generator, slab_noise, D, logs, layout, srow):
         """The round's stragglers take the free slots of the pending slab
         in client order (the overflow expires); landed slots free up.  A
         slot stores only the flat update, recomputed from the round's own
-        batch at the round's own params, so the slab stays O(B·D).
-        Writes the three staleness counts into ``logs``."""
+        batch at the round's own params, so the slab stays O(B·D).  On a
+        model axis > 1 (``layout``) a slot keeps row ``srow`` of the
+        blocked layout: the update is attacked whole, its (B, D) noise
+        drawn as the meshless round draws it, then cut.  Writes the three
+        staleness counts into ``logs``."""
         i32 = torch.int32
         zero = torch.zeros((), dtype=i32, device=dev)
         buffered, expired = zero, zero
@@ -771,9 +789,11 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                     client_update(params, xb[src], yb[src], lr))
                 if update_attack:
                     if gaussian and slab_noise is None:
-                        slab_noise = draw_noise(generator, B, d)
+                        slab_noise = draw_noise(generator, B, D)
                     U_s = apply_update_attacks(U_s, scen["byz"][src],
                                                slab_noise, scen)
+                if layout is not None:
+                    U_s = layout.rows(U_s, srow)
                 new.update(
                     u=torch.where(take[:, None], U_s.to(torch.float32),
                                   astate["u"]),
