@@ -195,19 +195,29 @@ Phases (any failure raises and the script exits non-zero):
                mesh with a model axis of 2, two gloo ranks on the one card
                (NCCL holds one rank a card; gloo carries the CUDA tensors
                through the host), a 1 x 2 ("data", "model") mesh.
-               h2o-danube-1.8b at its published widths, 4 of 24 layers
-               (both ranks hold the whole params), [zoo-fl]'s run under
-               compression int8 and bf16, each rank holding its (N, L)
-               residual columns; [async]'s intermittent (0.2, cohort 0.9)
-               and straggler (32-slot slab, each rank its (B, L) row)
-               runs; each against its meshless run on the card: masks
-               and stale counts equal, params within 1e-5·max|x| + 1e-6
-               (bf16, async) or the int8 bar of ms2_bar; one host sync a
-               run; ms/round, peak GiB a rank, collectives a round,
-               launches.  Then similarity_stats, masked_agg_update (fp32
-               and bf16 payloads) and dequant_fold_update at the rank-row
-               shapes (1, 179,907,840), (64, L) and (32, L) of the 3-NN
-               against their plain versions, timed cold and warm
+               h2o-danube-1.8b at its published widths, 4 of 24 layers,
+               each rank on its tiles of the params (slice 15, S6e: the
+               forward and backward split over the model group),
+               [zoo-fl]'s run under compression int8 and bf16, each rank
+               holding its (N, L) residual columns; [async]'s intermittent
+               (0.2, cohort 0.9) and straggler (32-slot slab, each rank
+               its (B, L) row) runs; each against its meshless run on the
+               card: masks and stale counts equal, the async params within
+               1e-5·max|x| + 1e-6 (the 3-NN has no tiled leaf), the lossy
+               bf16 params within ms2_split_bar (plus the int8 bar of
+               ms2_bar under int8); one host sync a run; ms/round, peak GiB
+               a rank, collectives a round by kind and bytes, launches.
+               The serve check on the same 4 layers: the bf16 prefill of
+               2 x 8192 through flash_attention_bf16 on each rank's 16/4
+               local heads (the counts set to 0 just before it and read
+               just after), within the serving bar of the meshless
+               prefill, bitwise the same on both ranks; one decode step
+               against a prefill of S + 1, greedy steps timed; fp32
+               decode against the forward at T = 64 to 2e-3.  Then
+               similarity_stats, masked_agg_update (fp32 and bf16
+               payloads) and dequant_fold_update at the rank-row shapes
+               (1, 179,907,840), (64, L) and (32, L) of the 3-NN against
+               their plain versions, timed cold and warm
  15. result  - a capture that reads the card on the host fails by name; a
                ``kernels`` JSON line, then ``{"ok": true, ...}`` last
 """
@@ -227,7 +237,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import configs, models  # noqa: E402
+from repro_torch import configs, models, sharding  # noqa: E402
 from repro_torch.convert import tree_from_jax, tree_to_numpy  # noqa: E402
 from repro_torch.core.attacks import (AttackConfig,  # noqa: E402
                                       make_byzantine_mask)
@@ -346,11 +356,15 @@ FLASH_SHAPES = [(2, 32, 8, 8192, 80, 4096, None, "h2o-danube prefill"),
                 (1, 16, 16, 4096, 128, None, None, "deepseek-moe heads"),
                 (1, 64, 8, 4096, 112, None, None, "kimi-k2 heads"),
                 (2, 64, 8, 4096, 128, None, None, "llama-vision heads"),
-                (1, 64, 8, 4096, 128, None, None, "llama-vision fp32 heads")]
+                (1, 64, 8, 4096, 128, None, None, "llama-vision fp32 heads"),
+                (2, 16, 4, 8192, 80, 4096, None,
+                 "h2o-danube local heads, model axis 2")]
 # shapes timed in one dtype only: llama-3.2-vision-90b's prefills launch
-# the bf16 kernel at B = 2 (8 calls) and the fp32 one at B = 1 (4 calls)
+# the bf16 kernel at B = 2 (8 calls) and the fp32 one at B = 1 (4 calls);
+# [mesh-ms2]'s bf16 prefill launches it on a rank's 16/4 local heads
 FLASH_ONLY = {"llama-vision heads": torch.bfloat16,
-              "llama-vision fp32 heads": torch.float32}
+              "llama-vision fp32 heads": torch.float32,
+              "h2o-danube local heads, model axis 2": torch.bfloat16}
 # masked_aggregate's client counts at S1's D: both register chunkings (8
 # rows up to N = 8, 32 above) and their ragged ends
 MASKED_NS = (1, 7, 8, 9, 33, 64)
@@ -4255,15 +4269,18 @@ def phase_dryrun(card, step_peaks):
 # ----------------------------------------------------------------------
 
 # h2o-danube-1.8b at its published widths, 4 of its 24 layers: both ranks
-# hold the whole params on the one card, and [mesh]'s 24-layer run peaks at
-# 55 GiB in one process.  All its leaves are even and D/2 is a QBLOCK
-# multiple, so both lossy codecs take the 1 x 2 mesh
+# share the one card, and [mesh]'s 24-layer run peaks at 55 GiB in one
+# process.  All its leaves are even and D/2 is a QBLOCK multiple, so both
+# lossy codecs take the 1 x 2 mesh
 MS2_LAYERS = 4
 MS2_D = 359_815_680
 MS2_CODECS = ("int8", "bf16")
 MS2_ASYNC = ("intermittent", "straggler")
 MS2_TIMEOUT = 900                # the two ranks' spawn, in seconds
 MS2_THREADS = 4                  # torch threads a rank (8 cores, 2 ranks)
+MS2_SERVE = (2, 8192)            # [serve]'s h2o-danube prefill, B x S
+MS2_DECODE_STEPS = 8             # greedy steps timed after the first
+MS2_FP32_T = 64                  # check_fp32's decode-vs-forward length
 
 
 def ms2_danube():
@@ -4302,15 +4319,28 @@ def ms2_lossy_run(model, codec, mesh=None, guard=True):
     held = torch.cuda.memory_allocated()
     before = sharding.collective_counts()
     try:
-        h, ms, syncs, counts, _, _ = mode_run(
-            model, fed, cfg, "engine", engine=eng, guard=guard,
-            schedule=constant_lr(ZOO_LR))
+        with sharding.record_collectives() as recs:
+            h, ms, syncs, counts, _, _ = mode_run(
+                model, fed, cfg, "engine", engine=eng, guard=guard,
+                schedule=constant_lr(ZOO_LR))
     finally:
         fl_simulator.encode_with_feedback = real
     after = sharding.collective_counts()
     peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     coll = {k: after[k] - before[k] for k in after}
+    coll["bytes"] = collective_bytes(recs)
     return h, ms, peak, syncs, counts, coll, torch.stack(vmax)
+
+
+def collective_bytes(recs):
+    """{kind: bytes} of ``sharding.record_collectives``' records: each
+    input's bytes, as ``launch.hlo`` counts them."""
+    out = {}
+    for r in recs:
+        n = math.prod(r["shape"]) * torch.empty((), dtype=r["dtype"]
+                                                ).element_size()
+        out[r["kind"]] = out.get(r["kind"], 0) + n
+    return out
 
 
 def ms2_async_run(tag, mesh=None, guard=True):
@@ -4364,11 +4394,28 @@ def ms2_bar(vmax, rounds):
     return float(sum(s[:t + 1].sum() for t in range(rounds)))
 
 
-def ms2_within(p, w, codec_bar, rounds):
+def ms2_split_bar(w, p0, rounds):
+    """What the split moves a bf16 leaf by against the meshless run: the
+    split sums each layer's partial products in another order, so every
+    update differs by bf16 rounding; a round rounds each param to bf16
+    once, so a param may land one bf16 ulp apart, at most one ulp of the
+    leaf's largest |value| a round, and the update's own rounding noise
+    adds a share of what the round moves the param (2^-5 of the meshless
+    run's largest move in the leaf).  On the CPU (h2o-danube's SMOKE
+    config, 2 rounds, 1 x 2 mesh) the split's largest error was 0.5-1.5
+    such ulps a leaf."""
+    m = w.abs().max()
+    ulp = torch.ldexp(torch.ones_like(m), torch.frexp(m).exponent - 8)
+    return float(rounds * ulp + (w - p0.to(w.device).float()).abs().max()
+                 / 32)
+
+
+def ms2_within(p, w, codec_bar, rounds, p0=None):
     """Params ``p`` against the meshless ``w`` (on the host): under int8,
     within ``codec_bar`` plus one bf16 ulp of the param a round (each
     round rounds the params to bf16 once); else within 1e-5·max|x| +
-    1e-6.  -> (max |err|, within)."""
+    1e-6.  A leaf trained split over the model axis (``p0``, its start)
+    may also differ by :func:`ms2_split_bar`.  -> (max |err|, within)."""
     w = w.to(p.device).float()
     e = (p.float() - w).abs()
     if codec_bar is None:
@@ -4377,6 +4424,8 @@ def ms2_within(p, w, codec_bar, rounds):
         a = torch.maximum(p.float().abs(), w.abs())
         ulp = torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - 8)
         lim = codec_bar * 1.0001 + rounds * ulp
+    if p0 is not None:
+        lim = lim + ms2_split_bar(w, p0, rounds)
     return float(e.max()), bool((e <= lim).all())
 
 
@@ -4396,6 +4445,8 @@ def ms2_rank(rank, world, path):
     want = torch.load(path, weights_only=False, mmap=True)
     out = {"s": sharding.model_index(mesh)}
     model = ms2_danube()
+    # the runs' start (run_federated_training draws it from cfg.seed + 1)
+    p0 = model.init(torch.Generator(device=DEV).manual_seed(SEED + 1), DEV)
     for codec in MS2_CODECS:
         h, ms, peak, syncs, counts, coll, vmax = ms2_lossy_run(
             model, codec, mesh, guard=False)
@@ -4406,7 +4457,7 @@ def ms2_rank(rank, world, path):
             if codec == "int8" else None
         errs, over = {}, []
         for k, p in h["params"].items():
-            errs[k], ok = ms2_within(p, w["params"][k], bar, 2)
+            errs[k], ok = ms2_within(p, w["params"][k], bar, 2, p0[k])
             if not ok:
                 over.append(k)
         out[codec] = dict(
@@ -4415,7 +4466,11 @@ def ms2_rank(rank, world, path):
             masks=ms2_same_masks(h, w["hist"]), acc=h["acc"][-1])
         del h
         torch.cuda.empty_cache()
-    del model
+    del model, p0
+    torch.cuda.empty_cache()
+    out["serve"] = ms2_serve(mesh)
+    out["serve_lines"] = ms2_serve_held(out["serve"], want["serve"])
+    out["fp32"] = ms2_fp32_decode(mesh)
     torch.cuda.empty_cache()
     for tag in MS2_ASYNC:
         h, ms, peak, syncs, counts, coll, stale, _ = ms2_async_run(
@@ -4434,6 +4489,119 @@ def ms2_rank(rank, world, path):
         del h
         torch.cuda.empty_cache()
     return out
+
+
+def ms2_serve(mesh=None):
+    """[serve]'s bf16 prefill of h2o-danube at MS2_LAYERS layers through
+    the kernels (``make_prefill(cfg, mesh)``; on a mesh each rank on its
+    tiles and its local heads), warmed once, then timed with the counts
+    set to 0 just before it and read just after; a prefill of S + 1; one
+    decode step from the prefill's cache (the rank's KV heads) at
+    position S, then MS2_DECODE_STEPS greedy steps timed.  -> the logits
+    (on the host), the times, the launches and the peak."""
+    B, S = MS2_SERVE
+    cfg = dataclasses.replace(configs.get("h2o-danube-1.8b"),
+                              n_layers=MS2_LAYERS, use_kernels=True)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    params = models.init(gen, cfg, DEV)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           device=DEV)
+    if mesh is not None:
+        params = sharding.place_params(params, mesh)
+    prefill = make_prefill(cfg, mesh)
+    lg, cache = prefill(params, tokens[:, :S])             # warm-up
+    del lg, cache
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg, cache = prefill(params, tokens[:, :S])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    lg_next, _ = prefill(params, tokens[:, :S + 1])
+    ops.reset_launch_counts()
+    with sharding.use_mesh(mesh):
+        dcache = decode_cache(cfg, cache, B, S, S + 1 + MS2_DECODE_STEPS)
+    del cache
+    with sharding.use_mesh(mesh), torch.inference_mode():
+        lg_d, dcache = models.decode_step(params, cfg, tokens[:, S:S + 1],
+                                          dcache, S)
+    step = make_serve_step(cfg, mesh)
+    tok = lg_d.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(S + 1, S + 1 + MS2_DECODE_STEPS):
+        tok, dcache = step(params, tok, dcache, t)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / MS2_DECODE_STEPS
+    if ops.launch_counts() != zoo_counts():
+        raise AssertionError(f"[mesh-ms2] decode launched a kernel: "
+                             f"{ops.launch_counts()}")
+    out = {"lg": lg.cpu(), "lg_next": lg_next.cpu(), "lg_d": lg_d.cpu(),
+           "tok": tok.cpu(), "ms": ms, "step_ms": step_ms,
+           "counts": counts, "peak": peak, "cfg": cfg}
+    del params, dcache, lg, lg_next, lg_d
+    torch.cuda.empty_cache()
+    return out
+
+
+def ms2_serve_held(got, want):
+    """A rank's serve check against the meshless one: the prefill's and
+    the S + 1 prefill's logits within the bf16 serving bar of the
+    meshless ones, and the rank's decode step within it of its own S + 1
+    prefill; the prefill through flash_attention_bf16 once a layer.
+    -> the lines for the log."""
+    cfg = got["cfg"]
+    if got["counts"] != zoo_counts(cfg, MS2_SERVE[1]):
+        raise AssertionError(f"[mesh-ms2] prefill launches {got['counts']}"
+                             f", expected {zoo_counts(cfg, MS2_SERVE[1])}")
+    return {
+        "prefill": check_bf16_logits("[mesh-ms2] mesh vs meshless prefill",
+                                     got["lg"], want["lg"], cfg),
+        "next": check_bf16_logits(
+            "[mesh-ms2] mesh vs meshless prefill of S + 1",
+            got["lg_next"], want["lg_next"], cfg),
+        "decode": check_bf16_logits(
+            "[mesh-ms2] mesh decode at S vs its prefill of S + 1",
+            got["lg_d"], got["lg_next"], cfg)}
+
+
+def ms2_fp32_decode(mesh):
+    """check_fp32's decode check on the mesh: h2o-danube at MS2_LAYERS
+    layers in fp32, the forward of T = MS2_FP32_T tokens through the fp32
+    kernel (attn_direct_max 32) and T teacher-forced decode steps from a
+    zero cache, each rank on its tiles; the decode within 2e-3 of the
+    forward.  -> (max |err|, the forward's launches)."""
+    T = MS2_FP32_T
+    cfg = dataclasses.replace(configs.get("h2o-danube-1.8b"),
+                              n_layers=MS2_LAYERS, use_kernels=True,
+                              dtype="float32", param_dtype="float32",
+                              attn_direct_max=32)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    params = sharding.place_params(models.init(gen, cfg, DEV), mesh)
+    toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen,
+                         device=DEV)
+    ops.reset_launch_counts()
+    with sharding.use_mesh(mesh), torch.inference_mode():
+        out = models.apply(params, cfg, toks)
+        full = models.logits(params, cfg, out["hidden"])
+        counts = ops.launch_counts()
+        cache = models.init_cache(cfg, 1, T, DEV)
+        dec = []
+        for t in range(T):
+            lg_t, cache = models.decode_step(params, cfg, toks[:, t:t + 1],
+                                             cache, t)
+            dec.append(lg_t[:, 0])
+    dec = torch.stack(dec, dim=1)
+    if counts != zoo_counts(cfg, T):
+        raise AssertionError(f"[mesh-ms2] fp32 forward launches {counts}")
+    torch.testing.assert_close(dec, full, rtol=2e-3, atol=2e-3)
+    err = (dec - full).abs().max().item()
+    del params, cache, out, full, dec
+    return err, counts
 
 
 def ms2_same_masks(h, w):
@@ -4520,9 +4688,11 @@ def ms2_kernel_rows(card, L_lossy, L_async):
 def phase_mesh_ms2(card):
     """The client x model mesh with a model axis of 2: two gloo ranks on
     the one card (NCCL holds one rank a card), a 1 x 2 mesh.  The lossy
-    codecs on h2o-danube-1.8b at 4 layers and [async]'s two fault models,
-    each against its meshless run on the card; then the kernels at the
-    rank-row shapes those runs launch.  -> the kernel rows."""
+    codecs on h2o-danube-1.8b at 4 layers, trained split over the model
+    group, and [async]'s two fault models, each against its meshless run
+    on the card; the serve check on the same 4 layers; then the kernels
+    at the rank-row shapes those runs launch.  -> (the kernel rows, rank
+    0's launches in the serve check's timed prefill)."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn_local
@@ -4534,7 +4704,8 @@ def phase_mesh_ms2(card):
     for codec in MS2_CODECS:
         h, ms, peak, syncs, counts, coll, vmax = ms2_lossy_run(model, codec)
         exp = stream_counts("diversefl", codec, 2, 2)
-        if counts != exp or syncs != 1 or sum(coll.values()):
+        if counts != exp or syncs != 1 or coll["bytes"] or \
+                coll["all_reduce"] + coll["all_gather"]:
             raise AssertionError(f"[mesh-ms2] meshless {codec}: launches "
                                  f"{counts} (want {exp}), {syncs} syncs, "
                                  f"collectives {coll}")
@@ -4564,6 +4735,11 @@ def phase_mesh_ms2(card):
         base[tag] = (ms, peak, h["acc"][-1], rates(h), counts)
         del h
         torch.cuda.empty_cache()
+    want["serve"] = ms2_serve()
+    serve_base = want["serve"]
+    if serve_base["counts"] != zoo_counts(serve_base["cfg"], MS2_SERVE[1]):
+        raise AssertionError(f"[mesh-ms2] meshless prefill launches "
+                             f"{serve_base['counts']}")
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "meshless.pt")
         torch.save(want, path)
@@ -4600,7 +4776,12 @@ def phase_mesh_ms2(card):
                 raise AssertionError(f"[mesh-ms2] {name} rank {s}: "
                                      + "; ".join(bad))
         rounds = 2 if lossy else 40
-        per_round = {k: v / rounds for k, v in ranks[0][name]["coll"].items()}
+        per_round = {k: v / rounds for k, v in ranks[0][name]["coll"].items()
+                     if k != "bytes"}
+        if lossy:
+            per_round["MB by kind"] = {
+                k: round(v / rounds / 1e6, 3)
+                for k, v in ranks[0][name]["coll"]["bytes"].items()}
         what = (f"h2o-danube-1.8b {MS2_LAYERS} of 24 layers "
                 f"({MS2_D:,} params bf16, L = {L_lossy:,}), "
                 f"compression={name!r}, 2 clients in blocks of 1, 2 rounds"
@@ -4608,8 +4789,11 @@ def phase_mesh_ms2(card):
                 f"3-NN N = {ASYNC_N}, blocks of {ASYNC_CHUNK}, {name}, "
                 f"40 rounds")
         bar = (f"params within the int8 bar {ranks[0][name]['bar']:.4g} "
-               f"+ one bf16 ulp of the param a round (ms2_bar), max |err| "
+               f"+ one bf16 ulp of the param a round (ms2_bar) + the "
+               f"split's ms2_split_bar, max |err| "
                if name == "int8" else
+               "params within 1e-5·max|x| + 1e-6 + the split's "
+               "ms2_split_bar, max |err| " if lossy else
                "params within 1e-5·max|x| + 1e-6, max |err| ")
         log(f"[mesh-ms2] {what}: 1 x 2 mesh of two gloo ranks on the one "
             f"card, ms/round rank 0 {ranks[0][name]['ms']:.3f}, rank 1 "
@@ -4625,11 +4809,35 @@ def phase_mesh_ms2(card):
                f"{ranks[0][name]['stale_counts']} as meshless")
             + f"; launches a rank {nonzero(ranks[0][name]['counts'])}, "
             f"1 host sync [{card}]")
+    sv = [r["serve"] for r in ranks]
+    if not all(torch.equal(sv[0][k], sv[1][k])
+               for k in ("lg", "lg_next", "lg_d", "tok")):
+        raise AssertionError("[mesh-ms2] the two ranks' serve results differ")
+    B, S = MS2_SERVE
+    lines = ranks[0]["serve_lines"]
+    log(f"[mesh-ms2] serve, h2o-danube-1.8b {MS2_LAYERS} of 24 layers bf16 "
+        f"on the 1 x 2 mesh, each rank on its tiles: prefill {B} x {S} "
+        f"through flash_attention_bf16 on its 16/4 local heads, launches a "
+        f"rank {nonzero(sv[0]['counts'])}, rank 0 {sv[0]['ms']:.1f} ms, "
+        f"rank 1 {sv[1]['ms']:.1f} ms (meshless {serve_base['ms']:.1f} ms; "
+        f"gloo carries each layer's activation sums through the host), "
+        f"peak GiB above the start rank 0 {sv[0]['peak']:.3f}, rank 1 "
+        f"{sv[1]['peak']:.3f} (meshless {serve_base['peak']:.3f}); against "
+        f"the meshless prefill: {lines['prefill']}; the prefill of S + 1: "
+        f"{lines['next']}; the mesh's decode at S vs its prefill of S + 1: "
+        f"{lines['decode']}; greedy decode {sv[0]['step_ms']:.2f} ms a step "
+        f"(meshless {serve_base['step_ms']:.2f}); logits and tokens bitwise "
+        f"the same on both ranks [{card}]")
+    fp = [r["fp32"] for r in ranks]
+    log(f"[mesh-ms2] fp32 decode vs forward on the 1 x 2 mesh, T = "
+        f"{MS2_FP32_T}: max |logit err| {max(e for e, _ in fp):.3g} (rtol = "
+        f"atol = 2e-3), the forward's launches a rank {nonzero(fp[0][1])} "
+        f"[{card}]")
     log(f"[mesh-ms2] the two ranks' spawn {spawn_s:.1f} s (two processes "
         f"share the card's SMs: not a multi-card number) [{card}]")
     rows = ms2_kernel_rows(card, L_lossy, L_async)
     log(f"[mesh-ms2] {time.perf_counter() - t0:.1f} s [{card}]")
-    return rows
+    return rows, sv[0]["counts"]
 
 
 def main():
@@ -4691,7 +4899,12 @@ def main():
     phase_dryrun(card, step_peaks)
     # slice 14 (S6d): lossy codecs and async rounds on a model axis of 2,
     # two gloo ranks on the one card, held against the meshless runs
-    phase_mesh_ms2(card)
+    _, ms2_counts = phase_mesh_ms2(card)
+    # slice 15 (S6e): the same mesh's prefill on tiles, split over the
+    # model group, launches the bf16 flash kernel on each rank's local
+    # heads: its launches join the main path's
+    for name, n in ms2_counts.items():
+        counts[name] = counts.get(name, 0) + n
     check_capture_failure(card)
     kernels = []
     for name, meta in KERNEL_META.items():

@@ -30,12 +30,14 @@ even, clip to ±127, cast.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.dequant_fold import dequant_int8, n_blocks
+from ..sharding.api import all_gather, tp_group, tp_rank_count
 
 QBLOCK = 128   # int8 quantization block width (params per fp32 scale)
 
@@ -147,17 +149,46 @@ def encode_with_feedback(codec: Codec, u: torch.Tensor, resid: torch.Tensor):
     return enc, dec, v - dec
 
 
-def quantize_tree(codec: Codec, tree: Dict[str, torch.Tensor]
-                  ) -> Dict[str, torch.Tensor]:
+def quantize_tree(codec: Codec, tree: Dict[str, torch.Tensor],
+                  like=None) -> Dict[str, torch.Tensor]:
     """Quantize-dequantize each (C, *shape) leaf of a client-batched params
     dict: the leaf flattens to (C, -1), so the codec's blocks run along
     each tensor on its own, and the decoded values take the leaf's shape
     again.  The enclave's guides go through it (no error feedback: they
-    are recomputed from the sealed samples every round)."""
+    are recomputed from the sealed samples every round).
+
+    On a model axis > 1 a leaf may be this rank's tile of the whole
+    ``like[k]`` (meta tensors serve): its blocks must be the whole
+    tensor's.  Where each contiguous run of the tile in the whole tensor's
+    ravel is a ``qblock`` multiple, the tile's blocks are the whole
+    tensor's blocks that fall in it, and it is quantised alone; otherwise
+    the group's tiles are gathered, the whole tensor quantised and the
+    tile cut back out."""
     if codec.lossless:
         return tree
-    return {k: codec.decode(codec.encode(v.reshape(v.shape[0], -1)))
-            .reshape(v.shape) for k, v in tree.items()}
+
+    def qd(v):
+        return codec.decode(codec.encode(v.reshape(v.shape[0], -1))) \
+            .reshape(v.shape)
+
+    out = {}
+    for k, v in tree.items():
+        whole = None if like is None else tuple(like[k].shape)
+        if whole is None or tuple(v.shape[1:]) == whole \
+                or codec.qblock is None:
+            out[k] = qd(v)
+            continue
+        dim = next(i for i, (a, b) in enumerate(zip(v.shape[1:], whole))
+                   if a != b)
+        run = math.prod(v.shape[1 + dim:])
+        if run % codec.qblock == 0:
+            out[k] = qd(v)
+            continue
+        s, _ = tp_rank_count()
+        n = v.shape[1 + dim]
+        full = torch.cat(all_gather(v, tp_group()).unbind(0), dim=1 + dim)
+        out[k] = qd(full).narrow(1 + dim, s * n, n)
+    return out
 
 
 def wire_bytes(codec: Codec, d: int) -> int:

@@ -26,9 +26,11 @@ fails raises: nothing falls back to eager rounds.
 ``mesh=`` (default: the active ``sharding.get_mesh()``) runs the same
 rounds on a client x model ``DeviceMesh`` (``sharding/api.py``): each data
 rank folds its own client blocks and the partial states are gathered
-(``fl/streaming.py``); on a model axis > 1 every rank holds the whole
-params and the federated state is the rank's row of the blocked (ms, L)
-layout.  So is the carry's: under a lossy codec the rank holds columns
+(``fl/streaming.py``); on a model axis > 1 the carry holds the rank's
+tiles of the params (``sharding.place_params``, once, on the engine's own
+mesh), every client's update is computed split over the model group, and
+the federated state is the rank's row of the blocked (ms, L) layout.  So
+is the carry's: under a lossy codec the rank holds columns
 ``[s·L, (s+1)·L)`` of the (N, D) error-feedback residual plane (the
 reference's plane, flat in blocked element order; lossy codecs need
 pad-free leaves, so ms·L == D), and in async rounds row ``s`` of the
@@ -37,7 +39,9 @@ own mesh's, whatever mesh is active when the carry is built.  A 1 x 1
 mesh is the meshless run: no collective, bit for bit.  A data-axis mesh
 is bitwise the meshless run with ``stream_shards`` equal to its rank
 count; a model axis > 1 agrees to fp tolerance (the criterion statistics
-sum shard partials).
+sum shard partials, and the split layers sum partial products), and every
+rank of a model group returns the same whole params
+(``sharding.gather_params``, once a run).
 """
 from __future__ import annotations
 
@@ -48,8 +52,9 @@ from typing import Optional
 import torch
 
 from ..sharding.api import (all_gather, blocked_layout, client_group,
-                            get_mesh, model_index, model_shard_count,
-                            sweep_put, use_mesh)
+                            gather_params, get_mesh, model_index,
+                            model_shard_count, place_params, sweep_put,
+                            use_mesh)
 from . import telemetry
 from .faults import init_async_state
 from .metrics import make_eval_fn
@@ -177,8 +182,11 @@ class RoundEngine:
     config allows it.  ``model_shards`` is the mesh's model-axis size.
     The first run on a model axis > 1 checks the config
     (``FLConfig.validate_model_sharding``: streaming, no kernel flags,
-    and for a lossy codec pad-free leaves and QBLOCK | D/ms); params stay
-    whole on every rank.  A model axis > 1 takes every codec and async
+    and for a lossy codec pad-free leaves and QBLOCK | D/ms).  There the
+    carry holds the rank's tiles: whole params handed in are placed
+    (``sharding.place_params``), and ``run_training`` returns the whole
+    params (``sharding.gather_params``).  A model axis > 1 takes every
+    codec and async
     round the check admits: the carry holds the rank's (N, L) residual
     columns or (B, L) slab row (:meth:`init_carry`), and ``run_segment``
     returns them.  ``graph=True`` on a mesh of more than one rank is
@@ -205,6 +213,7 @@ class RoundEngine:
                 f"at least two cards (ROADMAP queue 3); a 1 x 1 mesh "
                 f"captures, or run eager rounds")
         self._model_sharding_checked = False
+        self._like = None       # the whole params' shapes, on a split
         self.model, self.fed, self.cfg = model, fed, cfg
         self.device = fed.device
         self.eval_every = cfg.eval_every
@@ -255,13 +264,37 @@ class RoundEngine:
         zeros(N, w))`` under a lossy codec; ``(params, async state)`` in
         async rounds, its slab (B, w).  ``w`` is D, or on a model axis > 1
         the blocked layout's row width L of the engine's own mesh (never
-        the mesh active at the call)."""
+        the mesh active at the call), and the params are the rank's
+        tiles."""
         return self._init_carry(params, self.model_shards)
 
+    def _placed(self, params, ms):
+        """The rank's tiles of ``params`` on a model axis ``ms`` > 1: whole
+        params (the first ones seen fix the whole shapes) are placed on
+        the engine's own mesh, tiles pass."""
+        if ms <= 1:
+            return params
+        if self._like is None:
+            self._like = {k: torch.empty(v.shape, dtype=v.dtype,
+                                         device="meta")
+                          for k, v in params.items()}
+        if all(v.shape == self._like[k].shape for k, v in params.items()):
+            return place_params(params, self.mesh)
+        return params
+
+    def whole_params(self, params):
+        """The whole params from a carry's (the engine's mesh's tiles on a
+        model axis > 1: one ``all_gather`` a tiled leaf)."""
+        if self.model_shards <= 1 or self._like is None:
+            return params
+        with use_mesh(self.mesh):
+            return gather_params(params, self._like, self.mesh)
+
     def _init_carry(self, params, ms):
+        params = self._placed(params, ms)
         if not (self.lossy or self.async_mode):
             return params
-        w = blocked_layout(params, ms).L if ms > 1 \
+        w = blocked_layout(self._like, ms).L if ms > 1 \
             else sum(v.numel() for v in params.values())
         if self.lossy:
             return params, torch.zeros((self.cfg.n_clients, w),
@@ -278,14 +311,15 @@ class RoundEngine:
         model axis > 1 a whole (N, D) residual plane, in blocked element
         order (the reference's layout; the ranks' columns side by side),
         is cut to this rank's (N, L) columns."""
-        if not (self.lossy or self.async_mode):
-            return carry
-        if isinstance(carry, dict):
+        if not (self.lossy or self.async_mode) or isinstance(carry, dict):
             return self._init_carry(carry, ms)
-        if ms <= 1 or not self.lossy:
+        if ms <= 1:
+            return carry
+        carry = (self._placed(carry[0], ms),) + tuple(carry[1:])
+        if not self.lossy:
             return carry
         params, resid = carry
-        L = blocked_layout(params, ms).L
+        L = blocked_layout(self._like, ms).L
         if resid.shape[-1] == ms * L:
             s = model_index(self.mesh)
             resid = resid[:, s * L:(s + 1) * L].clone()
@@ -300,7 +334,7 @@ class RoundEngine:
         return carry
 
     def _check_model_sharding(self, params):
-        leaves = list(params.values())
+        leaves = list(self._like.values())
         self.cfg.validate_model_sharding(
             sum(p.numel() for p in leaves), self.model_shards,
             streaming_fallback=self.streaming_fallback,
@@ -311,7 +345,7 @@ class RoundEngine:
     def _round(self, carry, lr, generator, scen, draws, i, batch):
         kw = {} if draws is None else {k: v[i] for k, v in draws.items()}
         return self._body(carry, lr, generator, scen=scen, batch=batch,
-                          **kw)
+                          like=self._like, **kw)
 
     def _segments(self, R):
         """(start, length) of each eval segment of an R-round run."""
@@ -356,10 +390,12 @@ class RoundEngine:
         ``"_tel"`` with telemetry on), ``eval_rounds`` the host list of the
         rounds each row was evaluated at.  Nothing is read on the host.
         On a mesh every rank calls it and gets the same full params and
-        metrics."""
+        metrics: on a model axis > 1 the tiles are gathered once, at the
+        end."""
         with use_mesh(self.mesh):
-            return self._run_training(carry, generator, lrs, scen, draws,
-                                      self.model_shards)
+            params, generator, metrics, rounds = self._run_training(
+                carry, generator, lrs, scen, draws, self.model_shards)
+        return self.whole_params(params), generator, metrics, rounds
 
     def _run_training(self, carry, generator, lrs, scen, draws, ms):
         """The run on the active mesh, whose model axis is ``ms``: the

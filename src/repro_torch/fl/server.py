@@ -269,7 +269,7 @@ class SecureServer:
     def compute_guides(self, params, grad_fn, lr, E: int = 1,
                        select: Optional[torch.Tensor] = None,
                        client_chunk: Optional[int] = None,
-                       codec=None) -> torch.Tensor:
+                       codec=None, like=None) -> torch.Tensor:
         """Δ̃_j from unsealed samples only — the sole guide-data path.
 
         ``params`` are the global (unbatched) params; ``grad_fn`` must
@@ -282,7 +282,10 @@ class SecureServer:
         quantized updates against equally quantized guides; a lossless
         codec (or None) changes nothing.  Returns the flat (C, D) fp32
         guide matrix, columns in the layout of
-        ``core.aggregators.flatten_updates``."""
+        ``core.aggregators.flatten_updates``.  On a model axis > 1
+        ``params`` are the rank's tiles and ``like`` the whole params'
+        shapes: the guides are the tiles', (C, D_s), each quantised as its
+        whole tensor is (``compression.quantize_tree``)."""
         gx, gy = self.guide_batches()
         if select is not None:
             gx, gy = gx[select], gy[select]
@@ -295,7 +298,7 @@ class SecureServer:
             if codec is not None:
                 # per tensor, before the ravel: the int8 blocks follow
                 # tensor boundaries, as the reference's do
-                guides = quantize_tree(codec, guides)
+                guides = quantize_tree(codec, guides, like=like)
             return flatten_updates(guides)[0]
         return chunked_vmap(flat_guides, (gx, gy), client_chunk)
 

@@ -16,10 +16,14 @@ With ``streaming=True`` and an associative rule, Steps 2-5 run one
 lossy ``compression`` codec (``fl/compression.py``) every selected
 client sends ``enc(u + resid)`` and keeps the error in a per-client
 residual (error feedback); the round then carries ``(params, resid)``.
-On a client x model mesh whose model axis is ms > 1 every rank folds row
-``s`` of the blocked (ms, L) layout (``sharding/api.py``), and its carry
-is that row's too: the (N, L) residual columns, encoded in the codec's
-groups along L, and the (B, L) row of the staleness slab.
+On a client x model mesh whose model axis is ms > 1 the params are the
+rank's tiles (``sharding.place_params``) and every client's update is
+computed split over the model group; each rank folds row ``s`` of the
+blocked (ms, L) layout (``sharding/api.py``), built from its tiles with
+no collective, and its carry is that row's too: the (N, L) residual
+columns, encoded in the codec's groups along L, and the (B, L) row of
+the staleness slab.  The round's delta row goes straight back into the
+tiles.
 
 Training runs through the round engine (``fl/engine.RoundEngine``) by
 default: the whole run is dispatched without a host read, every eval
@@ -50,8 +54,8 @@ from ..core.attacks import (UPDATE_ATTACKS, AttackConfig, attack_update,
 from ..core.diversefl import DiverseFLConfig, sgd_round_once
 from ..data.pipeline import FederatedData
 from ..device import DeviceLike, resolve_device
-from ..sharding.api import (all_gather, blocked_layout, model_group,
-                            model_index, model_shard_count)
+from ..sharding.api import (BlockedLayout, model_group, model_index,
+                            model_shard_count)
 from . import telemetry
 from .chunking import chunked_vmap, tree_leaves, tree_map
 from .compression import available_codecs, encode_with_feedback, get_codec
@@ -451,7 +455,8 @@ def make_scenario(cfg: FLConfig, fed: Optional["Federation"] = None,
 def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     """Build ``body(carry, lr, generator=None, *, batch_idx=None, sel=None,
     noise=None, resample_ids=None, fault_rows=None, slab_noise=None,
-    scen=None, batch=None) -> (new_carry, logs)``: one round of Steps 2-5.  The carry
+    scen=None, batch=None, like=None) -> (new_carry, logs)``: one round of
+    Steps 2-5.  The carry
     is the params; ``(params, resid)`` under a lossy codec, ``resid`` the
     (N, D) fp32 error-feedback residuals, updated in place (a copy per
     round would double the largest tensor of the run) and returned; or
@@ -460,7 +465,9 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     axis is ms > 1 the rank's share replaces D by the blocked layout's
     row width L: ``resid`` is (N, L) (lossy codecs need pad-free leaves,
     so ms·L == D) and the slab ``astate["u"]`` (B, L); the rest of
-    ``astate`` is whole on every rank.  ``lr`` is a number or a 0-d fp32
+    ``astate`` is whole on every rank.  There the params are the rank's
+    tiles and ``like`` holds the whole params' shapes (meta tensors; the
+    round engine passes them).  ``lr`` is a number or a 0-d fp32
     tensor (the same bits).  ``scen`` holds the run's operands
     (:func:`make_scenario`; default: this federation's).
 
@@ -555,7 +562,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
 
     def body(carry, lr, generator=None, *, batch_idx=None, sel=None,
              noise=None, resample_ids=None, fault_rows=None,
-             slab_noise=None, scen=None, batch=None):
+             slab_noise=None, scen=None, batch=None, like=None):
         astate = resid = None
         if lossy:
             params, resid = carry
@@ -612,14 +619,23 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
 
         if stream_entry is not None:
             # ---- Steps 2-5, streaming: fold blocks into an O(D) state ----
-            # on a model axis > 1 this rank folds row s of the blocked
-            # (ms, L) layout: updates, guides and the root are cut to it
+            # on a model axis > 1 the params are this rank's tiles and it
+            # folds row s of the blocked (ms, L) layout, built from the
+            # tiles' updates, guides and root
             ms = model_shard_count()
-            layout = blocked_layout(params, ms) if ms > 1 else None
+            layout = None
+            if ms > 1:
+                if like is None:
+                    raise ValueError(
+                        "a round on a model axis > 1 takes the rank's tiles "
+                        "and like= (the whole params' shapes): run it "
+                        "through fl.engine.RoundEngine")
+                layout = BlockedLayout(like, ms, batched=False)
             srow = model_index()
-            D = sum(v.numel() for v in params.values())
+            D = layout.D if layout is not None \
+                else sum(v.numel() for v in params.values())
             if layout is not None and root is not None:
-                root = layout.rows(root.unsqueeze(0), srow)[0]
+                root = layout.local_rows(root.unsqueeze(0), srow)[0]
             ctx = AggregationContext(
                 f=cfg.f, dfl=cfg.dfl, byz_mask=byz, root_update=root,
                 codec=wire, stream_shards=cfg.stream_shards,
@@ -630,7 +646,10 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                     {k: v.unsqueeze(0) for k, v in params.items()})
                 d = D
             else:
-                unravel, d = layout.unravel, layout.L
+                d = layout.L
+
+                def unravel(row):
+                    return layout.unravel_local(row, srow, model_group())
             skip_fn = None
             if gaussian and noise is None:
                 rows = C if chunk is None or chunk >= C else chunk
@@ -650,21 +669,25 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 if update_attack:
                     if gaussian and noise_b is None:
                         noise_b = draw_noise(generator, U_blk.shape[0], D)
+                    if gaussian and layout is not None:
+                        # drawn at D, as the meshless round draws it
+                        noise_b = layout.local_cut(noise_b, srow)
                     U_blk = apply_update_attacks(U_blk, byz_b, noise_b, scen)
                 if async_mode and fcfg.kind == "intermittent":
                     # a malfunction at the client boundary, after the
                     # attack: it hits whatever the client transmits
                     U_blk = corrupt_updates(U_blk, fault_b, fcfg)
                 if layout is not None:
-                    U_blk = layout.rows(U_blk, srow)
+                    U_blk = layout.local_rows(U_blk, srow)
                 ctx_blk = {"byz": byz_b}
                 if async_mode:
                     ctx_blk["live"] = live_b
                 if entry.needs_guides:
                     G_blk = fed.server.compute_guides(
-                        params, grad_fn, lr, E, select=sel_b, codec=wire)
+                        params, grad_fn, lr, E, select=sel_b, codec=wire,
+                        like=like)
                     ctx_blk["guide"] = G_blk if layout is None \
-                        else layout.rows(G_blk, srow)
+                        else layout.local_rows(G_blk, srow)
                 if lossy:
                     # the client boundary: only the encoded dict enters
                     # the fold; the new residual rows ride out beside it.
@@ -692,7 +715,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                     G_land = fed.server.compute_guides(
                         params, grad_fn, lr, E, select=land_cid)
                     land_ctx["guide"] = G_land if layout is None \
-                        else layout.rows(G_land, srow)
+                        else layout.local_rows(G_land, srow)
                 extra_state, stale_logs = rule.update_block(
                     rule.init(d, dev), astate["u"], land_ctx)
 
@@ -704,9 +727,6 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 pods=cfg.pods, block_extra=lossy, extra_state=extra_state,
                 skip_fn=skip_fn)
             delta, agg_logs, client_logs = out[:3]
-            if layout is not None:
-                # every model rank's row of the delta -> the (ms, L) layout
-                delta = all_gather(delta, model_group())
             if lossy:
                 resid.index_copy_(0, sel, out[3])
             logs.update(client_logs)
@@ -764,9 +784,9 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
         slot stores only the flat update, recomputed from the round's own
         batch at the round's own params, so the slab stays O(B·D).  On a
         model axis > 1 (``layout``) a slot keeps row ``srow`` of the
-        blocked layout: the update is attacked whole, its (B, D) noise
-        drawn as the meshless round draws it, then cut.  Writes the three
-        staleness counts into ``logs``."""
+        blocked layout, built from the rank's tiles: its (B, D) noise is
+        drawn as the meshless round draws it and cut to the tiles.  Writes
+        the three staleness counts into ``logs``."""
         i32 = torch.int32
         zero = torch.zeros((), dtype=i32, device=dev)
         buffered, expired = zero, zero
@@ -790,10 +810,12 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 if update_attack:
                     if gaussian and slab_noise is None:
                         slab_noise = draw_noise(generator, B, D)
+                    if gaussian and layout is not None:
+                        slab_noise = layout.local_cut(slab_noise, srow)
                     U_s = apply_update_attacks(U_s, scen["byz"][src],
                                                slab_noise, scen)
                 if layout is not None:
-                    U_s = layout.rows(U_s, srow)
+                    U_s = layout.local_rows(U_s, srow)
                 new.update(
                     u=torch.where(take[:, None], U_s.to(torch.float32),
                                   astate["u"]),
@@ -1028,7 +1050,7 @@ def run_federated_training(model: SmallModel, fed: Federation, cfg: FLConfig,
                     i += n
                     _record_eval(history, i, host_sync(engine.eval_metrics(
                         engine.carry_params(carry), logs)), log_every)
-                params = engine.carry_params(carry)
+                params = engine.whole_params(engine.carry_params(carry))
             streaming_fallback = engine.streaming_fallback
         else:
             body = make_round_body(model, fed, cfg)

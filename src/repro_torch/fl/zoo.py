@@ -28,6 +28,11 @@ order and the flat update D matches the reference's column for column.
 ``apply``, ``loss`` and ``grad`` rebuild the nested tree from the flat
 dict as the same tensors (no copies).
 
+**Tensor parallelism.**  On a model axis > 1 (the round engine's mesh)
+the flat dict holds this rank's tiles (``sharding.place_params``):
+``apply``, ``loss`` and ``grad`` run the zoo split over the model group,
+and ``grad`` returns tile-shaped gradients.
+
 Token ids survive the enclave's fp32 seal (``core/tee.py``) exactly up to
 2^24, far beyond any vocab; ``loss`` and ``apply`` round them back to
 int64 at the boundary.
@@ -46,6 +51,7 @@ from ..data.pipeline import FederatedData
 from ..data.synthetic import make_token_stream
 from ..device import DeviceLike, resolve_device
 from ..models import ModelConfig
+from ..sharding.api import reduce_from_model
 
 Params = Dict[str, torch.Tensor]
 
@@ -86,6 +92,11 @@ class ZooModel:
         """The nested params structure (meta tensors: nothing stored)."""
         return models.init(None, self.cfg, "meta")
 
+    @functools.cached_property
+    def like(self) -> Params:
+        """The flat params at their whole shapes (meta tensors)."""
+        return flatten_tree(self._skeleton)
+
     def tree(self, params: Params):
         """The flat dict -> the nested params tree (the same tensors)."""
         return unflatten_like(self._skeleton,
@@ -113,9 +124,18 @@ class ZooModel:
         tok = torch.cat([_as_tokens(x), _as_tokens(y)[..., None]], dim=-1)
         nll = models.loss_fn(self.tree(params), self.cfg, {"tokens": tok})
         if l2:
-            nll = nll + 0.5 * l2 * sum(
-                torch.sum(torch.square(params[k].float()))
-                for k in sorted(params))
+            sq = {k: torch.sum(torch.square(params[k].float()))
+                  for k in sorted(params)}
+            tiled = [k for k in sq
+                     if params[k].shape != self.like[k].shape]
+            if tiled:
+                # a tile's term is the rank's share: the group's sum
+                # counts each whole leaf once
+                ridge = sum(v for k, v in sq.items() if k not in tiled) + \
+                    reduce_from_model(sum(sq[k] for k in tiled))
+            else:
+                ridge = sum(sq.values())
+            nll = nll + 0.5 * l2 * ridge
         return nll
 
     def grad(self, params: Params, batch, l2: float = 0.0) -> Params:

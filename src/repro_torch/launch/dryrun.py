@@ -16,8 +16,8 @@ returns at once, and counts as it goes (:func:`trace`):
   and results (view ops move none).  An unfused upper bound: XLA counts
   after fusion, so the two differ most where XLA fuses elementwise chains;
 - ``memory``: ``argument_size_in_bytes`` (the storages of the step's
-  arguments: this rank's params and inputs, which the port keeps whole on
-  every rank, so the whole model's), ``output_size_in_bytes`` (the
+  arguments: this rank's tiles of the params, ``sharding.place_params`` on
+  the 16-way model axis, and its inputs), ``output_size_in_bytes`` (the
   results' storages that are not arguments) and ``temp_size_in_bytes``
   (the peak of the live storages the step made, on top of the arguments,
   outputs live at the peak included: what ``torch.cuda.max_memory_
@@ -55,7 +55,7 @@ from .. import configs, models
 from ..core.diversefl import DiverseFLConfig
 from ..device import resolve_device
 from . import hlo as hlo_lib
-from ..sharding import client_group
+from ..sharding import client_group, place_params
 from .mesh import make_production_mesh
 from .serve import make_prefill, make_serve_step
 from .shapes import SHAPES, applicable, serve_inputs, train_inputs
@@ -178,8 +178,10 @@ def trace(fn, *args, **kwargs) -> dict:
 
 def _step(cfg, shape, mesh, opt, dev):
     """(fn, args, kwargs) of the combination's step, its arguments fake
-    tensors on ``dev`` (under an active ``FakeTensorMode``)."""
-    params = fake_tree(models.init(None, cfg, "meta"), dev)
+    tensors on ``dev`` (under an active ``FakeTensorMode``): the params
+    are this rank's tiles."""
+    params = fake_tree(place_params(models.init(None, cfg, "meta"), mesh),
+                       dev)
     if shape.kind == "train":
         specs, _ = train_inputs(cfg, shape, mesh)
         step = make_fl_round_step(

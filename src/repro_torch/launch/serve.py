@@ -3,8 +3,13 @@ against the KV/SSM cache.  The counterpart of ``repro/launch/serve.py``.
 
 Each takes the reference's ``mesh`` (a ``DeviceMesh`` or None) and runs
 under ``sharding.use_mesh(mesh)``: every rank of the mesh calls it with
-the same arguments, the params whole, and gets the meshless result.
-Each runs under ``torch.inference_mode()``.
+the same tokens and its own tiles of the params
+(``sharding.place_params(params, mesh)``; whole params off a model axis >
+1).  The layers run split over the model group, the cache holds the
+rank's KV heads and Mamba channels (``models.init_cache`` under the mesh,
+or ``launch.shapes.serve_inputs``), and every rank gets the whole logits
+and the same next tokens.  Decode reads nothing on the host.  Each runs
+under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 

@@ -107,22 +107,30 @@ def train_inputs(cfg: ModelConfig, shape: InputShape, mesh,
 def _cache_spec_tree(cfg: ModelConfig, cache, mesh, batch: int):
     """Specs of a cache tree: the batch over the client axes when it
     divides, otherwise the long (seq) dim of a KV cache over them
-    (flash-decoding style); SSM states put d_inner on ``model``."""
+    (flash-decoding style); the KV heads on ``model`` where the heads
+    split and ``ms`` tiles the KV heads, the SSM and conv states' d_inner
+    on ``model`` where the mixer is channel-parallel."""
     baxes = _batch_axes(mesh, batch)
     caxes = client_axes(mesh)
+    ms = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    heads = ms > 1 and (cfg.n_heads * cfg.head_dim) % ms == 0 \
+        and cfg.n_kv_heads % ms == 0
+    chans = ms > 1 and cfg.d_inner % ms == 0
 
     def spec_for(key, leaf):
         nd = leaf.dim()
         if "conv" in key:                      # (G,B,dc,di)
-            return (None,) * (nd - 1) + ("model",)
+            return (None,) * (nd - 1) + ("model" if chans else None,)
         if "ssm" in key:                       # (G,B,di,S)
-            return (None,) * (nd - 2) + ("model", None)
+            return (None,) * (nd - 2) + ("model" if chans else None, None)
         # kv caches: (G,B,C,K,dh) or (B,C,K,dh)
         spec = [None] * nd
         if baxes:
             spec[nd - 4] = baxes
         elif leaf.shape[nd - 3] >= 4096:
             spec[nd - 3] = caxes               # seq-sharded long cache
+        if heads:
+            spec[nd - 2] = "model"
         return tuple(spec)
 
     def walk(t, path):
@@ -136,12 +144,37 @@ def _cache_spec_tree(cfg: ModelConfig, cache, mesh, batch: int):
 
 def serve_inputs(cfg: ModelConfig, shape: InputShape, mesh):
     """token (B, 1), the cache tree (meta tensors) and cache_index (), with
-    their placements."""
+    their placements.  The cache is this rank's, as the split layers write
+    it (``models.init_cache`` under the mesh): its KV heads and Mamba
+    channels on a model axis > 1."""
     from ..models import model as _model
+    from ..sharding import use_mesh
     B, S = shape.batch, shape.seq
     baxes = _batch_axes(mesh, B)
-    cache = _model.init_cache(cfg, B, S, device="meta")
-    cache_pl = _map_specs(_cache_spec_tree(cfg, cache, mesh, B), mesh)
+    ms = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    with use_mesh(None):
+        whole = _model.init_cache(cfg, B, S, device="meta")
+    specs = _cache_spec_tree(cfg, whole, mesh, B)
+    local_kv = None
+    if ms > 1 and (cfg.n_heads * cfg.head_dim) % ms == 0 \
+            and cfg.n_kv_heads % ms:
+        # the KV heads this rank's query heads read (gemma-2b's one)
+        from ..models.attention import kv_heads
+        with use_mesh(mesh):
+            local_kv = kv_heads(cfg)
+
+    def cut(t, spec, key=""):
+        if isinstance(t, dict):
+            return {k: cut(t[k], spec[k], k) for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(cut(a, b) for a, b in zip(t, spec))
+        shp = [n // ms if name == "model" else n
+               for n, name in zip(t.shape, spec)]
+        if local_kv is not None and key in ("k", "v"):
+            shp[-2] = local_kv
+        return torch.empty(shp, dtype=t.dtype, device="meta")
+    cache = cut(whole, specs)
+    cache_pl = _map_specs(specs, mesh)
     tok, tok_pl = sds((B, 1), torch.int32, mesh, (baxes, None))
     idx, idx_pl = sds((), torch.int32, mesh, ())
     return ({"token": tok, "cache": cache, "cache_index": idx},

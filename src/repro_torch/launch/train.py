@@ -12,9 +12,12 @@ client axes are ``all_reduce`` on the client group:
   4. per-client similarity scalars                             [C1/C2]
   5. masked mean over the client axes: one all_reduce a leaf    [Eq. 6]
 
-On a model axis > 1 every model rank holds the whole params and computes
-its client's update in full (``sharding/api.py``).  At a trivial client
-axis no collective is issued.
+On a model axis > 1 the params are the rank's tiles
+(``sharding.place_params``) and each client's update is computed split
+over its model group (``sharding/api.py``): the update of a tiled leaf is
+the tile's, the similarity scalars sum the tiles' partials over the
+model group, and the masked mean and the step run on the tiles.  At a
+trivial mesh no collective is issued.
 
 ``main`` is the launcher: federated training of a zoo arch through the
 round engine on the host mesh, on the card unless ``--device cpu``:
@@ -31,7 +34,8 @@ from ..convert import flatten_tree, unflatten_like
 from ..core.diversefl import (DiverseFLConfig, criterion_logs, diversefl_mask,
                               similarity_stats_tree)
 from ..sharding import (all_gather, all_reduce, client_group, client_put,
-                        partition_pytree, use_mesh)
+                        model_group, model_shard_count, partition_pytree,
+                        use_mesh)
 from .mesh import client_axes, n_clients
 from .shapes import sds
 
@@ -108,8 +112,10 @@ def make_fl_round_step(cfg, mesh, dfl: DiverseFLConfig = DiverseFLConfig(),
     ``inputs`` is the dict of ``launch.shapes.train_inputs`` (tokens (B,
     S), guide_tokens (nc, gb, S), byz_kind (nc,), rng, the embeddings an
     arch needs), whole on every rank: each rank takes its own client's
-    block of the client-axis dim.  ``params`` is the ``models.init`` tree,
-    whole on every rank.  ``compression``/``update_dtype`` name the
+    block of the client-axis dim.  ``params`` is the ``models.init`` tree:
+    whole off a model axis, this rank's tiles on one
+    (``sharding.place_params(params, mesh)``); the new params come back
+    the same way.  ``compression``/``update_dtype`` name the
     dtype updates are carried and reduced in (:func:`resolve_update_dtype`).
     ``robust_mode``: ``"diversefl"`` (per-client criteria and the masked
     mean) or ``"median"`` (the coordinate-wise median of every client's
@@ -119,7 +125,7 @@ def make_fl_round_step(cfg, mesh, dfl: DiverseFLConfig = DiverseFLConfig(),
 
     metrics: ``loss`` (the clients' mean), ``kept``, and per client
     ``mask``, ``c1``, ``c2`` (nc,).  ``round_step.client_update(params,
-    batch) -> (z, loss)`` is Step 2 alone on whole params (z keyed like
+    batch) -> (z, loss)`` is Step 2 alone (z keyed like
     ``convert.flatten_tree(params)``), for checks."""
     if robust_mode not in ("diversefl", "median"):
         raise ValueError(f"robust_mode must be 'diversefl' or 'median', got "
@@ -127,6 +133,24 @@ def make_fl_round_step(cfg, mesh, dfl: DiverseFLConfig = DiverseFLConfig(),
     nc = n_clients(mesh)
     UDT = resolve_update_dtype(compression, update_dtype)
     caxes = client_axes(mesh)
+    # the whole leaves' shapes: a leaf of another shape is this rank's tile
+    whole = flatten_tree(models.init(None, cfg, "meta")) \
+        if model_shard_count(mesh) > 1 else {}
+
+    def stats(z, g):
+        """(z·g, ‖z‖², ‖g‖²) of the whole update: the tiles' partials
+        summed over the model group, each whole leaf counted once."""
+        tiled = {k for k in whole if z[k].shape[-len(whole[k].shape):]
+                 != whole[k].shape} if whole else set()
+        if not tiled:
+            return similarity_stats_tree(z, g)
+        part = torch.stack(similarity_stats_tree(
+            {k: z[k] for k in tiled}, {k: g[k] for k in tiled}))
+        part = all_reduce(part, model_group(mesh))
+        rest = similarity_stats_tree(
+            {k: v for k, v in z.items() if k not in tiled},
+            {k: v for k, v in g.items() if k not in tiled})
+        return tuple(a + b for a, b in zip(rest, part.unbind(0)))
 
     def psum(x):
         return x if nc == 1 else all_reduce(x, client_group(mesh))
@@ -195,7 +219,7 @@ def make_fl_round_step(cfg, mesh, dfl: DiverseFLConfig = DiverseFLConfig(),
         g, _ = client_update(flat, params, _guide_batch(inputs))
 
         # ---- Step 4: per-client similarity scalars ----
-        dot, zz, gg = similarity_stats_tree(z, g)
+        dot, zz, gg = stats(z, g)
         mask = diversefl_mask(dot, zz, gg, dfl)
 
         # ---- Step 5: masked mean over clients (Eq. 6) + model update ----
@@ -230,8 +254,10 @@ def make_fl_round_step(cfg, mesh, dfl: DiverseFLConfig = DiverseFLConfig(),
 
 
 def sharded_param_specs(cfg, mesh):
-    """The model params as meta-device tensors, each beside its placement
-    ``(mesh, spec)`` under the partition table (``launch.shapes.sds``)."""
+    """The model params as meta-device tensors at their whole shapes, each
+    beside its placement ``(mesh, spec)`` under the partition table
+    (``launch.shapes.sds``); ``sharding.place_params`` cuts a rank's tiles
+    to it."""
     shapes = models.init(None, cfg, "meta")
     specs = partition_pytree(shapes)
 

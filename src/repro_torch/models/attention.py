@@ -4,6 +4,15 @@ single-token decode against a KV cache (a ring buffer for sliding-window
 layers) and cross attention over frontend or encoder embeddings (the
 ``xattn``/``attn_x`` mixers).  The counterpart of
 ``repro/models/attention.py``.
+
+On a model axis ms > 1 that tiles ``H·dh`` the heads split over the model
+group (:func:`head_plan`): ``wo``'s tile holds rows ``[a, b)`` of the
+``H·dh`` head columns, so the rank computes the heads that cover them
+(its ``H/ms`` heads when ``ms | H``), the KV heads those read, and adds
+``o[:, :, a:b] @ wo`` into one ``all_reduce``.  A ``wq``/``wk``/``wv``
+tile that cuts a head, or holds other heads than the rank needs (``K %
+ms != 0``: gemma-2b's and granite's single KV head), is gathered
+(``sharding.col_blocks``).  The KV cache holds the rank's KV heads.
 """
 from __future__ import annotations
 
@@ -11,7 +20,8 @@ import math
 
 import torch
 
-from ..sharding.api import shard
+from ..sharding.api import (col_blocks, copy_to_model, reduce_from_model,
+                            shard, tp_rank_count, whole_leaf)
 from .config import ModelConfig
 from .layers import dense_init
 
@@ -112,6 +122,89 @@ def _blockwise(q, k, v, q_pos, k_pos, window, chunk, softcap=None):
 
 
 # ----------------------------------------------------------------------
+# The heads of a model rank
+# ----------------------------------------------------------------------
+
+def head_plan(cfg: ModelConfig, p=None):
+    """This model rank's share of the heads, or None when they do not
+    split: no model axis > 1, ``ms`` does not tile ``H·dh`` (every leaf is
+    whole then but a tiled ``wk``/``wv``), or the block's ``wo`` in ``p``
+    is whole (params not placed: every rank runs the whole block).
+    -> ``(h0, h1, k0, k1, a, b, expand)``: query heads ``[h0, h1)``, KV
+    heads ``[k0, k1)``, the rank's ``o`` columns ``[a, b)`` counted from
+    head ``h0``'s first, and ``expand`` (None, or each local query head's
+    local KV head when the GQA grouping does not carry over)."""
+    s, ms = tp_rank_count()
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if ms <= 1 or (H * dh) % ms or (p is not None
+                                    and p["wo"].shape[-2] == H * dh):
+        return None
+    a, b = s * H * dh // ms, (s + 1) * H * dh // ms
+    h0, h1 = a // dh, -(-b // dh)
+    g = H // K
+    k0, k1 = h0 // g, (h1 - 1) // g + 1
+    expand = None
+    if not ((h0 % g == 0 and (h1 - h0) % g == 0) or k1 - k0 == 1):
+        expand = [h // g - k0 for h in range(h0, h1)]
+    return h0, h1, k0, k1, a - h0 * dh, b - h0 * dh, expand
+
+
+def kv_heads(cfg: ModelConfig) -> int:
+    """The KV heads a rank computes and caches, its params placed."""
+    plan = head_plan(cfg)
+    return cfg.n_kv_heads if plan is None else plan[3] - plan[2]
+
+
+def _q_proj(x, p, cfg: ModelConfig, plan):
+    """The rank's query heads (B, S, heads, dh) of ``x``, which has entered
+    the model-parallel region when ``plan`` is set.  Without a split
+    ``wq`` is whole: it tiles exactly where ``wo`` does."""
+    H, dh = cfg.n_heads, cfg.head_dim
+    if plan is None:
+        w, n = p["wq"], H
+    else:
+        (w,) = col_blocks(p["wq"], H * dh, [(plan[0] * dh, plan[1] * dh)])
+        n = plan[1] - plan[0]
+    B, S, _ = x.shape
+    return (x @ w).reshape(B, S, n, dh)
+
+
+def _kv_proj(x, p, cfg: ModelConfig, plan):
+    """The rank's K and V heads of ``x`` (B, L, D)."""
+    K, dh = cfg.n_kv_heads, cfg.head_dim
+    B, L, _ = x.shape
+    if plan is None:
+        wk, wv, n = whole_leaf(p["wk"], K * dh), whole_leaf(p["wv"], K * dh), K
+    else:
+        cols = [(plan[2] * dh, plan[3] * dh)]
+        (wk,), (wv,) = (col_blocks(p[w], K * dh, cols) for w in ("wk", "wv"))
+        n = plan[3] - plan[2]
+    return (x @ wk).reshape(B, L, n, dh), (x @ wv).reshape(B, L, n, dh)
+
+
+def _grouped(k, plan):
+    """K or V heads as the rank's query heads read them."""
+    if plan is None or plan[6] is None:
+        return k
+    return k[:, :, torch.tensor(plan[6], device=k.device)]
+
+
+def _out_proj(o, p, cfg: ModelConfig, plan):
+    """o (B, S, heads, dh) -> the block's output: ``o @ wo``, or this
+    rank's columns ``[a, b)`` times its ``wo`` rows, summed over the
+    group."""
+    B, S = o.shape[:2]
+    o = o.reshape(B, S, -1)
+    if plan is None:
+        return o @ p["wo"]
+    return reduce_from_model(o[:, :, plan[4]:plan[5]] @ p["wo"])
+
+
+def _enter(x, plan):
+    return x if plan is None else copy_to_model(x)
+
+
+# ----------------------------------------------------------------------
 # Self attention block (forward / prefill / decode)
 # ----------------------------------------------------------------------
 
@@ -129,25 +222,27 @@ def self_attention(x, p, cfg: ModelConfig, positions, window=None,
       to its decode step, so nothing reads the old contents.
     """
     B, S, _ = x.shape
-    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
-    q = shard(q, (None, None, "model", None))
-    k = (x @ p["wk"]).reshape(B, S, K, dh)
-    v = (x @ p["wv"]).reshape(B, S, K, dh)
+    plan = head_plan(cfg, p)
+    x = _enter(x, plan)
+    q = shard(_q_proj(x, p, cfg, plan), (None, None, "model", None))
+    k, v = _kv_proj(x, p, cfg, plan)
     k = rope(k, positions, cfg.rope_theta)
     q = rope(q, positions, cfg.rope_theta)
 
     if cache is None:
         if cfg.use_kernels and S > cfg.attn_direct_max:
             from ..kernels import ops as kops
-            o = kops.flash_attention(q, k, v, window=window,
+            o = kops.flash_attention(q, _grouped(k, plan),
+                                     _grouped(v, plan), window=window,
                                      softcap=cfg.logit_softcap)
         elif S <= cfg.attn_direct_max:
             mask = _causal_mask(positions, positions, window)
-            o = _sdpa(q, k, v, mask, cfg.logit_softcap)
+            o = _sdpa(q, _grouped(k, plan), _grouped(v, plan), mask,
+                      cfg.logit_softcap)
         else:
-            o = _blockwise(q, k, v, positions, positions, window,
-                           cfg.attn_chunk, cfg.logit_softcap)
+            o = _blockwise(q, _grouped(k, plan), _grouped(v, plan),
+                           positions, positions, window, cfg.attn_chunk,
+                           cfg.logit_softcap)
         new_cache = {"k": k, "v": v}
     else:
         t = cache_index
@@ -170,11 +265,11 @@ def self_attention(x, p, cfg: ModelConfig, positions, window=None,
         valid = (k_pos <= positions[:, :1]) & (k_pos >= 0)
         mask = _causal_mask(positions, k_pos, window) & \
             valid[:, None, None, :]
-        o = _sdpa(q, ck, cv, mask, cfg.logit_softcap)
+        o = _sdpa(q, _grouped(ck, plan), _grouped(cv, plan), mask,
+                  cfg.logit_softcap)
         new_cache = {"k": ck, "v": cv}
 
-    out = o.reshape(B, S, H * dh) @ p["wo"]
-    return out, new_cache
+    return _out_proj(o, p, cfg, plan), new_cache
 
 
 
@@ -184,22 +279,36 @@ def self_attention(x, p, cfg: ModelConfig, positions, window=None,
 
 def cross_attention(x, p, cfg: ModelConfig, cross_kv):
     """cross_kv: {"k": (B,L,K,dh), "v": (B,L,K,dh)} (computed once from
-    the frontend embeddings or the encoder output; static during decode).
-    Plain ``_sdpa`` under an all-true (B, 1, S, L) mask, no rope, as in
-    the reference: no kernel runs here."""
+    the frontend embeddings or the encoder output; static during decode;
+    the rank's KV heads on a split).  Plain ``_sdpa`` under an all-true
+    (B, 1, S, L) mask, no rope, as in the reference: no kernel runs
+    here."""
     B, S, _ = x.shape
-    H, dh = cfg.n_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
+    plan = head_plan(cfg, p)
+    q = _q_proj(_enter(x, plan), p, cfg, plan)
     q = shard(q, (None, None, "model", None))
     L = cross_kv["k"].shape[1]
     mask = torch.ones((B, 1, S, L), dtype=torch.bool, device=x.device)
-    o = _sdpa(q, cross_kv["k"], cross_kv["v"], mask, cfg.logit_softcap)
-    return o.reshape(B, S, H * dh) @ p["wo"]
+    o = _sdpa(q, _grouped(cross_kv["k"], plan), _grouped(cross_kv["v"], plan),
+              mask, cfg.logit_softcap)
+    return _out_proj(o, p, cfg, plan)
 
 
 def make_cross_kv(emb, p, cfg: ModelConfig):
-    """Project frontend/encoder embeddings (B, L, D) once into cross K/V."""
-    B, L, _ = emb.shape
-    K, dh = cfg.n_kv_heads, cfg.head_dim
-    return {"k": (emb @ p["wk"]).reshape(B, L, K, dh),
-            "v": (emb @ p["wv"]).reshape(B, L, K, dh)}
+    """Project frontend/encoder embeddings (B, L, D) once into cross K/V
+    (the rank's KV heads on a split)."""
+    plan = head_plan(cfg, p)
+    k, v = _kv_proj(_enter(emb, plan), p, cfg, plan)
+    return {"k": k, "v": v}
+
+
+def encoder_attention(x, p, cfg: ModelConfig, mask):
+    """Non-causal self attention over frame embeddings (plain ``_sdpa``,
+    no rope, no kernel, as in the reference)."""
+    plan = head_plan(cfg, p)
+    xin = _enter(x, plan)
+    q = _q_proj(xin, p, cfg, plan)
+    k, v = _kv_proj(xin, p, cfg, plan)
+    o = _sdpa(q, _grouped(k, plan), _grouped(v, plan), mask,
+              cfg.logit_softcap)
+    return _out_proj(o, p, cfg, plan)

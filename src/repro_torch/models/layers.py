@@ -16,7 +16,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..sharding.api import shard
+from ..sharding.api import (copy_to_model, reduce_from_model, shard,
+                            tp_rank_count)
 from .config import ModelConfig, torch_dtype
 
 
@@ -114,10 +115,32 @@ def make_mlp_params(gen, cfg: ModelConfig, device, d_ff=None, lead=()):
     return p
 
 
-def apply_mlp(x, p, cfg: ModelConfig):
+def mlp_split(d_ff: int, p) -> bool:
+    """Whether the MLP of width ``d_ff`` runs split over the model group:
+    a model axis > 1 that tiles ``d_ff``, ``w_down`` in ``p`` this rank's
+    rows (and ``w_up``/``w_gate`` its columns)."""
+    _, ms = tp_rank_count()
+    return ms > 1 and d_ff % ms == 0 and p["w_down"].shape[-2] != d_ff
+
+
+def mlp_partial(x, p, cfg: ModelConfig):
+    """This rank's term of the MLP: column-parallel up (and gate), the
+    activation on the rank's hidden units, row-parallel down.  ``x`` has
+    entered the model-parallel region (:func:`copy_to_model`); the sum
+    over the group (:func:`reduce_from_model`) is the MLP.  Whole leaves
+    give the whole MLP."""
     up = shard(x @ p["w_up"], (None, None, "model"))
     if "w_gate" in p:
         h = activation(x @ p["w_gate"], cfg.activation) * up
     else:
         h = activation(up, cfg.activation)
     return h @ p["w_down"]
+
+
+def apply_mlp(x, p, cfg: ModelConfig, d_ff=None):
+    """The MLP of width ``d_ff`` (``cfg.d_ff`` unless given): split over
+    the model group where :func:`mlp_split` says so (one ``all_reduce``
+    forward, one backward), else whole on every rank."""
+    if mlp_split(d_ff or cfg.d_ff, p):
+        return reduce_from_model(mlp_partial(copy_to_model(x), p, cfg))
+    return mlp_partial(x, p, cfg)

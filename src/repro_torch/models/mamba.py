@@ -16,13 +16,22 @@ routes:
   (``repro/models/mamba.py:120-121``); the port does not copy that.
 
 Decode: one O(1) step carrying (conv_state, ssm_state).
+
+On a model axis ms > 1 that tiles ``d_inner`` the mixer is
+channel-parallel: ``conv_w``, ``conv_b``, ``dt_proj``, ``dt_bias``,
+``A_log`` and ``D_skip`` hold the rank's ``d_inner/ms`` channels, the scan
+runs on them, ``x_proj`` and ``out_proj`` are row-parallel (each one
+``all_reduce``), and the cache holds the rank's channels.  ``in_proj``'s
+tile is a contiguous block of its ``2·d_inner`` columns, not the rank's
+``x`` and ``z`` channels, so it is gathered (``sharding.col_blocks``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..sharding.api import shard
+from ..sharding.api import (col_blocks, copy_to_model, reduce_from_model,
+                            shard, tp_rank_count, whole_leaf)
 from .config import ModelConfig, torch_dtype
 from .layers import _const, _fill, dense_init
 
@@ -67,11 +76,27 @@ def _causal_conv(x, w, b):
     return out + b
 
 
+def channel_split(cfg: ModelConfig, p=None):
+    """This rank's channels ``(lo, hi)`` of ``d_inner`` when the mixer is
+    channel-parallel (a model axis > 1 that tiles it, ``out_proj`` in
+    ``p`` this rank's rows), else None."""
+    s, ms = tp_rank_count()
+    di = cfg.d_inner
+    if ms <= 1 or di % ms or (p is not None
+                              and p["out_proj"].shape[-2] == di):
+        return None
+    return s * di // ms, (s + 1) * di // ms
+
+
 def _ssm_coeffs(xc, p, cfg: ModelConfig):
     """xc: (B,S,di) post-conv activations -> (deltaA, deltaBx, Cmat), the
-    first two (B,S,di,n) fp32, the last (B,S,n) fp32."""
+    first two (B,S,di,n) fp32, the last (B,S,n) fp32.  Channel-parallel,
+    ``x_proj``'s rows are the rank's: the projection is summed over the
+    group, and re-enters the split for the rank's channels."""
     R, S_st = cfg.dt_rank, cfg.ssm_state
     proj = xc @ p["x_proj"]                                    # (B,S,R+2n)
+    if channel_split(cfg, p) is not None:
+        proj = copy_to_model(reduce_from_model(proj))
     dt_r, Bm, Cm = torch.split(proj, [R, S_st, S_st], dim=-1)
     dt = F.softplus(dt_r.float() @ p["dt_proj"].float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])                                 # (di,n)
@@ -125,9 +150,17 @@ def mamba_mixer(x, p, cfg: ModelConfig, cache=None, cache_index=None):
     scan's final state, on both routes.
     """
     B, S, _ = x.shape
-    dc = cfg.ssm_conv
-    xz = shard(x @ p["in_proj"], (None, None, "model"))
-    xp, z = torch.chunk(xz, 2, dim=-1)
+    dc, di = cfg.ssm_conv, cfg.d_inner
+    ch = channel_split(cfg, p)
+    if ch is None:
+        xz = shard(x @ whole_leaf(p["in_proj"], 2 * di), (None, None, "model"))
+        xp, z = torch.chunk(xz, 2, dim=-1)
+    else:
+        x = copy_to_model(x)
+        lo, hi = ch
+        w_x, w_z = col_blocks(p["in_proj"], 2 * di,
+                              [(lo, hi), (di + lo, di + hi)])
+        xp, z = x @ w_x, x @ w_z
 
     if cache is None:
         xc = F.silu(_causal_conv(xp, p["conv_w"], p["conv_b"]))
@@ -152,13 +185,18 @@ def mamba_mixer(x, p, cfg: ModelConfig, cache=None, cache_index=None):
         new_cache = {"conv": conv_state, "ssm": h}
 
     out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    if ch is not None:
+        out = reduce_from_model(out)
     return out, new_cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, device, lead=()):
+    """Zero conv and SSM states: the rank's channels on a split."""
     lead = tuple(lead)
-    return {"conv": torch.zeros(lead + (batch, cfg.ssm_conv, cfg.d_inner),
+    ch = channel_split(cfg)
+    di = cfg.d_inner if ch is None else ch[1] - ch[0]
+    return {"conv": torch.zeros(lead + (batch, cfg.ssm_conv, di),
                                 dtype=torch_dtype(cfg.dtype), device=device),
-            "ssm": torch.zeros(lead + (batch, cfg.d_inner, cfg.ssm_state),
+            "ssm": torch.zeros(lead + (batch, di, cfg.ssm_state),
                                dtype=torch.float32, device=device)}
 

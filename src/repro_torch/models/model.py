@@ -17,6 +17,16 @@ the stacked leaves, and checkpoints each group (each encoder layer) when
 ``cfg.remat`` and a backward pass will run.  ``apply``'s ``aux`` is the
 sum of the MoE layers' load-balance losses, which ``loss_fn`` adds to the
 cross entropy.
+
+On a model axis ms > 1 the params are this rank's tiles
+(``sharding.place_params``) and every layer runs split over the model
+group (``sharding/api.py``).  The embedding and the head are
+vocab-parallel where ``ms`` tiles the padded vocab: a rank looks up the
+tokens of its vocab range (zeros elsewhere; the ``all_reduce`` adds one
+nonzero term a token, so the embedding is bitwise the meshless one), and
+the loss combines the ranks' log-sum-exps from one ``all_gather`` and the
+target logit from one ``all_reduce``.  ``logits`` gathers the rank's
+vocab block.
 """
 from __future__ import annotations
 
@@ -27,9 +37,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
-from ..sharding.api import shard
-from .attention import (_sdpa, cross_attention, make_attn_params,
-                        make_cross_kv, self_attention)
+from ..sharding.api import (copy_to_model, gather_tile, get_mesh,
+                            reduce_from_model, shard, tp_rank_count, use_mesh)
+from .attention import (cross_attention, encoder_attention, kv_heads,
+                        make_attn_params, make_cross_kv, self_attention)
 from .config import ModelConfig, torch_dtype
 from .layers import (apply_mlp, apply_norm, dense_init, make_mlp_params,
                      make_norm_params)
@@ -190,6 +201,19 @@ def _run_group(x, aux, gp, cfg: ModelConfig, positions, cross_emb, c_ins,
 _CKPT = dict(use_reentrant=False, preserve_rng_state=False)
 
 
+def _under_mesh(fn):
+    """``fn`` run under the mesh active now.  A checkpoint region's
+    recomputation runs in the backward pass, for CUDA tensors on the
+    autograd engine's own thread, where the thread-local active mesh is
+    not set, and a split layer would take its tiles for whole leaves."""
+    mesh = get_mesh()
+
+    def run(*args):
+        with use_mesh(mesh):
+            return fn(*args)
+    return run
+
+
 def _remat(cfg: ModelConfig, decode: bool = False) -> bool:
     """Checkpoint each group body (``cfg.remat``) only where a backward
     pass will run: under grad and not decoding, so serving runs exactly
@@ -215,7 +239,8 @@ def _scan_groups(x, groups, cfg: ModelConfig, positions, cross_emb,
             else [_index(c, g) for c in cache]
         args = (x, aux, gp, cfg, positions, cross_emb, c_ins, cache_index,
                 decode)
-        x, aux, new_caches = checkpoint(_run_group, *args, **_CKPT) \
+        x, aux, new_caches = checkpoint(_under_mesh(_run_group), *args,
+                                        **_CKPT) \
             if remat else _run_group(*args)
         if collect_cache:
             for li, nc in enumerate(new_caches):
@@ -234,14 +259,8 @@ def _scan_groups(x, groups, cfg: ModelConfig, positions, cross_emb,
 def _encoder_layer(x, bp, cfg: ModelConfig, mask):
     """One encoder layer: non-causal self attention (plain ``_sdpa``, no
     rope, no kernel, as in the reference) and the MLP."""
-    B, L, _ = x.shape
-    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = apply_norm(x, bp["ln1"], cfg)
-    q = (h @ bp["attn"]["wq"]).reshape(B, L, H, dh)
-    k = (h @ bp["attn"]["wk"]).reshape(B, L, K, dh)
-    v = (h @ bp["attn"]["wv"]).reshape(B, L, K, dh)
-    o = _sdpa(q, k, v, mask, cfg.logit_softcap)
-    x = x + o.reshape(B, L, H * dh) @ bp["attn"]["wo"]
+    x = x + encoder_attention(h, bp["attn"], cfg, mask)
     return x + apply_mlp(apply_norm(x, bp["ln2"], cfg), bp["mlp"], cfg)
 
 
@@ -256,7 +275,7 @@ def _encode(params, cfg: ModelConfig, enc_emb):
     x = enc_emb
     for i in range(cfg.n_enc_layers):
         args = (x, _index(stacked, i), cfg, mask)
-        x = checkpoint(_encoder_layer, *args, **_CKPT) \
+        x = checkpoint(_under_mesh(_encoder_layer), *args, **_CKPT) \
             if remat else _encoder_layer(*args)
     return apply_norm(x, params["encoder"]["final_norm"], cfg)
 
@@ -265,9 +284,29 @@ def _encode(params, cfg: ModelConfig, enc_emb):
 # Forward / prefill
 # ----------------------------------------------------------------------
 
+def _vocab_range(width: int, cfg: ModelConfig):
+    """``(lo, split)``: the first vocab id of a head or embedding block of
+    ``width`` ids, and whether the block is this rank's tile of a
+    vocab-parallel split (then ``lo = s·width``)."""
+    if width == cfg.padded_vocab:
+        return 0, False
+    s, _ = tp_rank_count()
+    return s * width, True
+
+
 def _embed(params, cfg: ModelConfig, tokens):
     dt = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dt)
+    emb = params["embed"]
+    lo, split = _vocab_range(emb.shape[0], cfg)
+    if split:
+        local = tokens - lo
+        mine = (local >= 0) & (local < emb.shape[0])
+        x = torch.where(mine[..., None],
+                        emb[local.clamp(0, emb.shape[0] - 1)],
+                        emb.new_zeros(()))
+        x = reduce_from_model(x).to(dt)
+    else:
+        x = emb[tokens].to(dt)
     if cfg.norm == "rmsnorm":
         # sqrt(d_model) rounded to the activation dtype first, as the
         # reference's jnp.sqrt(d).astype(dtype)
@@ -312,10 +351,11 @@ def apply(params, cfg: ModelConfig, tokens, *, enc_emb=None, cross_emb=None,
     return out
 
 
-def _mask_pad_logits(lg, cfg: ModelConfig):
+def _mask_pad_logits(lg, cfg: ModelConfig, lo: int = 0):
+    """Pad columns to -1e30; ``lg``'s columns are vocab ids ``lo`` on."""
     if cfg.padded_vocab == cfg.vocab_size:
         return lg
-    col = torch.arange(cfg.padded_vocab, device=lg.device)
+    col = torch.arange(lo, lo + lg.shape[-1], device=lg.device)
     return torch.where(col < cfg.vocab_size, lg, -1e30)
 
 
@@ -325,8 +365,14 @@ def _head(params):
 
 
 def logits(params, cfg: ModelConfig, hidden):
-    """fp32 logits (..., padded_vocab); the pad columns are -1e30."""
-    return _mask_pad_logits(hidden.float() @ _head(params).float(), cfg)
+    """fp32 logits (..., padded_vocab); the pad columns are -1e30.  A
+    vocab-parallel head computes the rank's block and gathers the rest."""
+    w = _head(params)
+    lo, split = _vocab_range(w.shape[-1], cfg)
+    if not split:
+        return _mask_pad_logits(hidden.float() @ w.float(), cfg)
+    lg = _mask_pad_logits(copy_to_model(hidden).float() @ w.float(), cfg, lo)
+    return gather_tile(lg, -1, same_grad=True)
 
 
 # ----------------------------------------------------------------------
@@ -334,20 +380,33 @@ def logits(params, cfg: ModelConfig, hidden):
 # ----------------------------------------------------------------------
 
 def lm_loss(params, cfg: ModelConfig, hidden, targets, mask):
-    """hidden: (B,S,D); targets/mask: (B,S)."""
+    """hidden: (B,S,D); targets/mask: (B,S).  Vocab-parallel: each rank's
+    log-sum-exp of its block, the group's gathered and combined the same
+    way on every rank; the target logit summed from its one owner."""
     B, S, D = hidden.shape
     w = _head(params).float()                                 # (D, V)
+    lo, split = _vocab_range(w.shape[-1], cfg)
     T = B * S
     h = hidden.reshape(T, D)
+    if split:
+        h = copy_to_model(h)
     t = targets.reshape(T)
     m = mask.reshape(T).float()
     Q = min(cfg.loss_chunk, T)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s0 in range(0, T, Q):
         lg = _mask_pad_logits(shard(h[s0:s0 + Q].float() @ w,
-                                    (None, "model")), cfg)
+                                    (None, "model")), cfg, lo)
         lse = torch.logsumexp(lg, dim=-1)
-        correct = torch.gather(lg, 1, t[s0:s0 + Q, None])[:, 0]
+        ti = t[s0:s0 + Q] - lo
+        if split:
+            mine = (ti >= 0) & (ti < lg.shape[-1])
+            ti = ti.clamp(0, lg.shape[-1] - 1)
+        correct = torch.gather(lg, 1, ti[:, None])[:, 0]
+        if split:
+            lse = torch.logsumexp(gather_tile(lse[None], 0, same_grad=True),
+                                  dim=0)
+            correct = reduce_from_model(torch.where(mine, correct, 0.0))
         total = total + torch.sum((lse - correct) * m[s0:s0 + Q])
     return total / torch.clamp_min(m.sum(), 1.0)
 
@@ -374,9 +433,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     """Zero cache matching the layout (group leaves lead with n_groups).
     A cross layer's entry holds its K/V over the ``cfg.cross_len``
     embeddings, which decode reads and never recomputes: the caller fills
-    them (a prefill's cache, or ``make_cross_kv``)."""
+    them (a prefill's cache, or ``make_cross_kv``).  On a model axis > 1
+    it holds the rank's KV heads and Mamba channels, as the split layers
+    write them."""
     dev = resolve_device(device)
-    K, dh = cfg.n_kv_heads, cfg.head_dim
+    K, dh = kv_heads(cfg), cfg.head_dim
     dt = torch_dtype(cfg.dtype)
 
     def entry_cache(entry, lead):

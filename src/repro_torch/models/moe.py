@@ -18,9 +18,11 @@ from __future__ import annotations
 
 import torch
 
-from ..sharding.api import shard
+from ..sharding.api import (copy_to_model, reduce_from_model, shard,
+                            tp_rank_count)
 from .config import ModelConfig
-from .layers import activation, apply_mlp, dense_init, gated, make_mlp_params
+from .layers import (activation, apply_mlp, dense_init, gated,
+                     make_mlp_params, mlp_partial, mlp_split)
 
 
 def make_moe_params(gen, cfg: ModelConfig, device, lead=()):
@@ -97,8 +99,13 @@ def apply_moe(x: torch.Tensor, p, cfg: ModelConfig):
     slot_gate = torch.zeros((E * C + 1,), dtype=torch.float32, device=dev)
     slot_gate[dest] = keep * gates.reshape(-1)[order]
 
-    xf_pad = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
-    h = xf_pad[slot_tok[:E * C]].reshape(E, C, D)             # gather
+    # this rank's experts [e0, e0 + El): all E without an expert split
+    El = p["routed_up"].shape[-3]
+    split = El != E
+    e0 = tp_rank_count()[0] * El if split else 0
+    xe = copy_to_model(xf) if split else xf
+    xf_pad = torch.cat([xe, xe.new_zeros((1, D))], dim=0)
+    h = xf_pad[slot_tok[e0 * C:(e0 + El) * C]].reshape(El, C, D)  # gather
     h = shard(h, ("model", None, None))
 
     up = torch.bmm(h, p["routed_up"])
@@ -109,16 +116,27 @@ def apply_moe(x: torch.Tensor, p, cfg: ModelConfig):
         hidden = activation(up, cfg.activation)
     y = shard(torch.bmm(hidden, p["routed_down"]), ("model", None, None))
 
-    contrib = y.reshape(E * C, D) * slot_gate[:E * C, None].to(y.dtype)
+    # the gates enter the split too: each rank's gradient is its slots'
+    gate = copy_to_model(slot_gate) if split else slot_gate
+    contrib = y.reshape(El * C, D) * \
+        gate[e0 * C:(e0 + El) * C, None].to(y.dtype)
     contrib = torch.cat([contrib, contrib.new_zeros((1, D))], dim=0)
-    # each token's slots, ascending (a dropped one is the zero row E*C)
+    # each token's slots, ascending (a dropped one, or another rank's,
+    # is the zero row El*C)
     slot_of = torch.empty_like(dest)
     slot_of[order] = dest
-    slots = torch.sort(slot_of.reshape(t, K), dim=1).values
+    slots = torch.sort(slot_of.reshape(t, K), dim=1).values - e0 * C
+    slots = torch.where((slots >= 0) & (slots < El * C), slots, El * C)
     out = contrib[slots[:, 0]]
     for j in range(1, K):
         out = out + contrib[slots[:, j]]
 
-    if "shared" in p:
-        out = out + apply_mlp(xf, p["shared"], cfg)
+    F_s = cfg.n_shared_experts * cfg.d_expert
+    shared_split = "shared" in p and split and mlp_split(F_s, p["shared"])
+    if shared_split:
+        out = out + mlp_partial(xe, p["shared"], cfg)
+    if split:
+        out = reduce_from_model(out)
+    if "shared" in p and not shared_split:
+        out = out + apply_mlp(xf, p["shared"], cfg, d_ff=F_s)
     return out.reshape(B, S, D), aux

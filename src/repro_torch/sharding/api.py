@@ -8,22 +8,32 @@ clients live on the (pod, data) axes, pod-major: client range ``[c·C/R,
 gives.  Each rank holds its own block of every client-stacked quantity;
 off-mesh every helper is the identity.
 
-On the model axis the parameters stay whole and replicated on every rank,
-so every rank computes the same client gradient as a meshless run, bit
-for bit, and no model op needs a sharding rule.  Only the federated state
-is model-sharded: the updates, the guides, the fold's AggState and the
-round delta, in the blocked ``(ms, L)`` layout of
+On a model axis ``ms`` > 1 the parameters are tensor-parallel, as the
+reference's ``place_params`` leaves them: every leaf whose partition-table
+dim (:data:`_RULES`) tiles ``ms`` lives as this rank's tile, a fresh
+tensor (:func:`place_params`); a leaf whose dim does not tile stays whole
+on every rank.  The zoo's forward and backward run split across the
+model group (megatron-style column/row splits, vocab-parallel embedding
+and loss, expert-parallel MoE, channel-parallel Mamba; ``models/``),
+through the counted autograd operators :func:`copy_to_model`,
+:func:`reduce_from_model` and :func:`gather_tile`.  So a rank's gradient
+of a tiled leaf is its tile's gradient, and a replicated leaf's gradient
+is whole and the same on every rank of the group.
+
+The federated state is the blocked ``(ms, L)`` layout of
 :func:`flatten_updates_sharded`, of which model rank ``s`` keeps row
-``s``.  That is where the O(D) state of a round lives; a rank needs the
-whole params, the whole client gradient and the whole delta at the
-round's peak anyway, so tiles of the params at rest would save no peak
-memory.  :func:`shard` therefore only records its hint, and
-:func:`place_params`/:func:`shard_params` are the identity.
+``s``.  Row ``s`` of a tiled leaf is exactly its tile raveled, so a rank
+builds its row from its tiles with no collective
+(:meth:`BlockedLayout.local_rows`) and turns its row of the round delta
+back into tiles the same way (:meth:`BlockedLayout.unravel_local`); only
+the replicated leaves' column bands cross the model group, in one
+``all_gather``.  :func:`gather_params` rebuilds the whole params.
+:func:`shard` records its hint.
 
 Every collective the port issues goes through :func:`all_reduce` or
 :func:`all_gather` here, which count it in :data:`COLLECTIVES`: a run on a
-trivial mesh (1 x 1) issues none.  A failed collective raises; nothing
-catches it.
+trivial mesh (1 x 1), and a model with no tiled leaf on any mesh without
+data ranks, issues none.  A failed collective raises; nothing catches it.
 
 Specs are tuples with the reference's ``PartitionSpec`` entries: an axis
 name, a tuple of names, or ``None`` per dim (``()`` replicates).
@@ -137,6 +147,128 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
+# Tensor-parallel autograd operators over the model group
+# ----------------------------------------------------------------------
+
+def tp_group():
+    """The model group of the active mesh when its model axis is > 1,
+    else None (no tensor parallelism)."""
+    mesh = get_mesh()
+    if mesh is None or model_shard_count(mesh) <= 1:
+        return None
+    return model_group(mesh)
+
+
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    """SUM of ``x`` over ``group``, reduced in fp32 and rounded once to
+    ``x``'s dtype; ``x`` is left as it was."""
+    y = x.to(torch.float32, copy=True).contiguous()
+    all_reduce(y, group)
+    return y.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherTile(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tile, dim, group, same_grad):
+        ctx.dim, ctx.group, ctx.same_grad = dim, group, same_grad
+        ctx.n, ctx.s = tile.shape[dim], dist.get_rank(group)
+        return torch.cat(all_gather(tile, group).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.same_grad:
+            g = _summed(g, ctx.group)
+        return (g.narrow(ctx.dim, ctx.s * ctx.n, ctx.n).contiguous(), None,
+                None, None)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Enter a model-parallel region: the identity forward, an
+    ``all_reduce`` of the gradient backward (each rank's use of ``x`` is
+    partial).  The identity without a model axis > 1."""
+    group = tp_group()
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """Leave a model-parallel region: the ranks' partial ``x`` summed by
+    one ``all_reduce`` (in fp32, rounded once to ``x``'s dtype) forward,
+    the identity backward.  The identity without a model axis > 1."""
+    group = tp_group()
+    return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def gather_tile(tile: torch.Tensor, dim: int = -1,
+                same_grad: bool = False) -> torch.Tensor:
+    """The whole tensor from every model rank's ``tile`` along ``dim``, in
+    rank order (one ``all_gather`` forward).  Backward keeps this rank's
+    slice of the gradient, after summing the group's gradients (each
+    rank's use of the whole is partial) unless ``same_grad`` says every
+    rank's gradient is the same (a replicated use).  It saves nothing:
+    the backward needs no forward value."""
+    group = tp_group()
+    if group is None:
+        return tile
+    return _GatherTile.apply(tile, dim % tile.dim(), group, same_grad)
+
+
+def tp_rank_count():
+    """``(s, ms)``: this rank's model coordinate and the model axis size
+    of the active mesh; ``(0, 1)`` without tensor parallelism."""
+    mesh = get_mesh()
+    ms = model_shard_count(mesh)
+    return (model_index(mesh), ms) if ms > 1 else (0, 1)
+
+
+def col_blocks(w: torch.Tensor, whole: int, ranges, dim: int = -1):
+    """``[w[..., lo:hi, ...] for (lo, hi) in ranges]`` along ``dim`` of a
+    leaf whose whole extent there is ``whole``, for a model-parallel use
+    (every rank takes its own ranges, and the gradient of the leaf is the
+    sum of the ranks'): this rank's tile itself where one range is exactly
+    the tile, else the leaf gathered once (:func:`gather_tile`) or, for a
+    whole leaf, the leaf through :func:`copy_to_model`, then narrowed."""
+    s, ms = tp_rank_count()
+    n = w.shape[dim]
+    if n != whole:                             # this rank's tile
+        if len(ranges) == 1 and tuple(ranges[0]) == (s * n, (s + 1) * n):
+            return [w]
+        w = gather_tile(w, dim)
+    else:
+        w = copy_to_model(w)
+    return [w.narrow(dim, lo, hi - lo) for lo, hi in ranges]
+
+
+def whole_leaf(w: torch.Tensor, whole: int, dim: int = -1) -> torch.Tensor:
+    """The whole leaf for a replicated use (every rank computes the same
+    thing from it): a tile is gathered with ``same_grad``, a whole leaf is
+    itself."""
+    if w.shape[dim] == whole:
+        return w
+    return gather_tile(w, dim, same_grad=True)
+
+
+# ----------------------------------------------------------------------
 # Mesh geometry
 # ----------------------------------------------------------------------
 
@@ -239,11 +371,12 @@ SHARD_HINTS = collections.Counter()
 def shard(x, spec):
     """Record the reference's model-axis hint for ``x`` and return ``x``.
 
-    Every rank holds the whole params (module docstring) and computes
-    activations from them, so the hint places nothing; it is
-    counted in :data:`SHARD_HINTS` when a model axis > 1 is active and
-    ``x`` tiles it.  A no-op without a mesh, on a model axis of 1, and
-    where a dim does not tile."""
+    The activation the hint names is already laid out by the tensor-
+    parallel model code (module docstring): a column-parallel product
+    holds this rank's columns, a vocab-parallel logit block its vocab
+    range.  The hint places nothing; it is counted in :data:`SHARD_HINTS`
+    when a model axis > 1 is active and ``x`` tiles it.  A no-op without
+    a mesh, on a model axis of 1, and where a dim does not tile."""
     mesh = get_mesh()
     if mesh is None or model_shard_count(mesh) <= 1:
         return x
@@ -481,13 +614,20 @@ def _leaf_plan(path: str, shape, ms: int):
 
 class BlockedLayout:
     """The blocked ``(ms, L)`` arrangement of a params-shaped tree, a pure
-    function of ``ms`` and the leaf plans: ``L = Σ_ℓ cols_ℓ``.
+    function of ``ms`` and the leaf plans: ``L = Σ_ℓ cols_ℓ``.  It is
+    built from the whole leaves' shapes (``like`` may hold meta tensors),
+    never from tiles; ``D`` is the whole element count.
 
     ``blocks(leaves)`` arranges client-stacked fp32 leaves (in JAX's leaf
     order) into ``(n, ms, L)``; ``unravel((ms, L))`` inverts it (the zero
     padding trimmed); ``rows(flat, s)`` takes row ``s`` of a flat ``(n,
     D)`` matrix in ``core.aggregators.flatten_updates`` order without
-    building the other rows."""
+    building the other rows.  The tensor-parallel twins read and write
+    model rank ``s``'s tiles (:func:`place_params`) instead of whole
+    leaves: ``local_rows(flat_tiles, s)`` is ``rows`` from the ``(n,
+    D_s)`` flat matrix of the tiles, ``local_cut(flat, s)`` that flat
+    matrix from a whole one, and ``unravel_local(row, s, group)`` this
+    rank's tiles from its row."""
 
     def __init__(self, like, ms: int, batched: bool):
         self.like, self.ms = like, ms
@@ -496,6 +636,73 @@ class BlockedLayout:
         self.plans = [_leaf_plan(p, tuple(u.shape[cut:]), ms)
                       for p, u in pairs]
         self.L = sum(c for _, _, c, _ in self.plans)
+        self.D = sum(sz for _, sz, _, _ in self.plans)
+
+    def _tile_shape(self, plan) -> tuple:
+        shape, _, _, k = plan
+        if k is None:
+            return shape
+        return shape[:k] + (shape[k] // self.ms,) + shape[k + 1:]
+
+    def local_rows(self, flat: torch.Tensor, s: int) -> torch.Tensor:
+        """Row ``s`` of the blocked layout, ``(n, L)`` fp32, from the
+        ``(n, D_s)`` flat matrix of model rank ``s``'s tiles (the leaves
+        in JAX's leaf order): a tiled leaf's band IS its tile raveled
+        (``_piece``'s ``select(1 + k, s)`` is the tile's ``narrow``), a
+        whole leaf's band is its pad-and-split row ``s``."""
+        n, out, o = flat.shape[0], [], 0
+        for plan in self.plans:
+            shape, sz, c, k = plan
+            if k is not None:
+                out.append(flat[:, o:o + c].to(torch.float32))
+                o += c
+            else:
+                u = flat[:, o:o + sz].reshape((n,) + shape)
+                out.append(self._piece(u.to(torch.float32), plan, s))
+                o += sz
+        return torch.cat(out, dim=1)
+
+    def local_cut(self, flat: torch.Tensor, s: int) -> torch.Tensor:
+        """Model rank ``s``'s ``(n, D_s)`` flat tile matrix from a whole
+        ``(n, D)`` one (``flatten_updates`` order): each tiled leaf cut to
+        its tile, each whole leaf kept."""
+        n, out, o = flat.shape[0], [], 0
+        for shape, sz, c, k in self.plans:
+            u = flat[:, o:o + sz]
+            if k is not None:
+                nk = shape[k]
+                u = u.reshape((n,) + shape).narrow(1 + k, s * (nk // self.ms),
+                                                   nk // self.ms)
+                u = u.reshape(n, c)
+            out.append(u)
+            o += sz
+        return torch.cat(out, dim=1)
+
+    def unravel_local(self, row: torch.Tensor, s: int, group):
+        """Model rank ``s``'s tiles (``like``'s structure) from its row
+        ``(L,)`` of the blocked layout: a tiled leaf's band reshapes to
+        its tile; the whole leaves' bands of every rank come from one
+        ``all_gather`` of their columns only (none when every leaf is
+        tiled) and rebuild those leaves whole."""
+        whole_bands, o = [], 0
+        for shape, sz, c, k in self.plans:
+            if k is None:
+                whole_bands.append(row[o:o + c])
+            o += c
+        rest = None
+        if whole_bands:
+            rest = all_gather(torch.cat(whole_bands), group)  # (ms, Lw)
+        outs, o, w = [], 0, 0
+        for plan in self.plans:
+            shape, sz, c, k = plan
+            if k is not None:
+                outs.append(row[o:o + c].reshape(self._tile_shape(plan)))
+            else:
+                band = rest[:, w:w + c]
+                outs.append(band.reshape(self.ms * c)[:sz].reshape(shape))
+                w += c
+            o += c
+        return unflatten_like(self.like, outs)
 
     def _piece(self, uf, plan, s=None):
         """(n, ms, c) of one (n, *shape) fp32 leaf; (n, c) of row s."""
@@ -656,9 +863,8 @@ def param_shardings(params, mesh=None):
     """The partition table's split of each leaf on the client x model mesh:
     its spec with every dim that does not tile dropped (``()`` where
     nothing tiles), replicated over the client axes (every client trains
-    the same parameters).  A description of the reference's layout: the
-    port keeps the params whole (module docstring).  None without a
-    mesh."""
+    the same parameters).  :func:`place_params` cuts each leaf to it.
+    None without a mesh."""
     mesh = mesh if mesh is not None else get_mesh()
     if mesh is None:
         return None
@@ -670,14 +876,68 @@ def param_shardings(params, mesh=None):
     return _map_paths(one, params)
 
 
+def _model_split(path: str, shape, ms: int):
+    """The dim the partition table tiles over ``model`` (``ms`` > 1), or
+    None: the leaf stays whole on every rank."""
+    return _leaf_plan(path, tuple(shape), ms)[3]
+
+
 def place_params(params, mesh=None):
-    """The reference's placement of params on the mesh.  The port keeps
-    them whole and replicated on every rank (module docstring), so this is
-    the identity, with or without a mesh."""
+    """The reference's placement of params on the mesh: on a model axis >
+    1 each leaf that the partition table tiles becomes this rank's tile
+    along its split dim, a fresh contiguous tensor (the whole leaf can be
+    freed); every other leaf is kept as it is.  The identity without a
+    mesh or on a model axis of 1.  ``params`` is a tree or the zoo's flat
+    dict; meta leaves give meta tiles."""
+    mesh = mesh if mesh is not None else get_mesh()
+    ms = model_shard_count(mesh)
+    if mesh is None or ms <= 1:
+        return params
+    s = model_index(mesh)
+
+    def one(path, leaf):
+        k = _model_split(path, leaf.shape, ms)
+        if k is None:
+            return leaf
+        n = leaf.shape[k] // ms
+        return leaf.narrow(k, s * n, n).clone(
+            memory_format=torch.contiguous_format)
+    return _map_paths(one, params)
+
+
+def shard_params(params, like=None):
+    """The in-round twin of :func:`place_params`: checks that every leaf
+    of ``params`` still has its tile's shape under the active mesh
+    (``like`` holds the whole shapes; meta tensors do) and returns
+    ``params``.  The identity without a mesh or on a model axis of 1."""
+    mesh = get_mesh()
+    if mesh is None or model_shard_count(mesh) <= 1 or like is None:
+        return params
+    want = [leaf.shape for _, leaf in _paths(place_params(like, mesh))]
+    got = _paths(params)
+    for (path, leaf), shape in zip(got, want):
+        if tuple(leaf.shape) != tuple(shape):
+            raise ValueError(
+                f"shard_params: {path} has shape {tuple(leaf.shape)}, but "
+                f"this rank's tile of it is {tuple(shape)}")
     return params
 
 
-def shard_params(params):
-    """The reference's in-round twin of :func:`place_params`: the identity
-    here, for the same reason."""
-    return params
+def gather_params(tiles, like, mesh=None):
+    """The whole params from every model rank's tiles: one ``all_gather``
+    a tiled leaf over the model group, the tiles joined along the split
+    dim in rank order; a whole leaf is kept.  ``like`` holds the whole
+    shapes.  The identity without a mesh or on a model axis of 1."""
+    mesh = mesh if mesh is not None else get_mesh()
+    ms = model_shard_count(mesh)
+    if mesh is None or ms <= 1:
+        return tiles
+    group = model_group(mesh)
+    splits = {p: _model_split(p, leaf.shape, ms) for p, leaf in _paths(like)}
+
+    def one(path, leaf):
+        k = splits[path]
+        if k is None:
+            return leaf
+        return torch.cat(all_gather(leaf, group).unbind(0), dim=k)
+    return _map_paths(one, tiles)

@@ -2,14 +2,15 @@
 ``tests/test_sharded_step.py``'s round-step tests, on the SMOKE configs.
 
 The port runs in 8 ranks (``launch.mesh.spawn_local``: a ``FileStore``
-under ``tmp_path``, one torch thread a rank, a time limit on the join)
-with the params whole on every rank; inputs are made with
-numpy from a seed.  The reference's gemma-2b step runs in a subprocess on
+under ``tmp_path``, one torch thread a rank, a time limit on the join),
+each rank on its tiles of the params (``sharding.place_params``; the
+step's results gathered with ``sharding.gather_params``); inputs are made
+with numpy from a seed.  The reference's gemma-2b step runs in a subprocess on
 8 forced host devices on the same params and inputs (``.npz`` both ways).
 
 * gemma-2b on 4 x 2, fp32: the reference's mask (sign flip and x5 caught)
-  and ``kept``, params within 1e-5·max|x| + 1e-6 of each leaf, and the
-  loss falls over 5 more steps.
+  and ``kept``, params within 1e-5·max|x| + 1e-6 of each leaf (every rank
+  the same bits), and the loss falls over 5 more steps.
 * deepseek-moe-16b on (2, 2, 2): ``kept == 3`` with one sign flipper.
 * Median mode on 4 x 2: the loss falls over 5 steps.
 """
@@ -104,16 +105,19 @@ def _gemma_ranks(rank, world, p0_leaves, inputs):
     mesh = make_host_mesh(4, 2, device="cpu")
     like = models.init(None, cfg, "meta")
     p0 = unflatten_like(like, [torch.from_numpy(v) for v in p0_leaves])
-    # the partition table splits some leaves on this mesh's model axis
-    # (a description: every rank keeps the params whole)
+    # the partition table splits some leaves on this mesh's model axis,
+    # and each rank holds its tiles of them
     split = sum(sharding.MODEL_AXIS in s
                 for s in _specs(sharding.param_shardings(p0, mesh)))
-    assert sharding.place_params(p0, mesh) is p0
+    tiles = sharding.place_params(p0, mesh)
+    assert sum(a.shape != b.shape for (_, a), (_, b) in
+               zip(leaf_paths(tiles), leaf_paths(p0))) > 0
     x = _as_torch(inputs)
     out = {"split": split}
     step = make_fl_round_step(cfg, mesh, lr=0.1, donate=False)
-    p, m = step(p0, x)
-    out["p1"] = [v.numpy() for _, v in leaf_paths(p)]
+    p, m = step(tiles, x)
+    out["p1"] = [v.numpy() for _, v in leaf_paths(
+        sharding.gather_params(p, like, mesh))]
     out["m1"] = {k: v.numpy() for k, v in m.items()}
     for _ in range(5):
         p, m = step(p, x)
@@ -122,7 +126,7 @@ def _gemma_ranks(rank, world, p0_leaves, inputs):
                              robust_mode="median")
     tm = _as_torch(_inputs(cfg.vocab_size, 8, 64, 4, [0, 1, 0, 0],
                            guide_from_tokens=True))
-    p, m = med(p0, tm)
+    p, m = med(tiles, tm)
     out["med0"] = float(m["loss"])
     for _ in range(5):
         p, m = med(p, tm)

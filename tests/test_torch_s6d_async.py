@@ -218,7 +218,9 @@ def _async_run(ref, name, mesh):
         logs_out.append({k: logs[k].clone() for k in LOG_KEYS
                          if k in logs})
     met = eng.eval_metrics(eng.carry_params(carry), logs)
-    return {"params": carry[0], "state": carry[1], "logs": logs_out,
+    # the carry holds the rank's tiles on a model axis > 1
+    return {"params": eng.whole_params(carry[0]), "state": carry[1],
+            "logs": logs_out,
             **{k: met[k].numpy() for k in ("acc", "c1c2", "mask_tpr",
                                             "mask_fpr") if k in met}}
 
@@ -231,7 +233,7 @@ def _gaussian_run(mesh, ref):
     gen = torch.Generator().manual_seed(0)
     carry, logs = eng.run_segment(p0, gen, torch.full((cfg.rounds,), LR),
                                   scen)
-    return {"params": carry[0], "u": carry[1]["u"],
+    return {"params": eng.whole_params(carry[0]), "u": carry[1]["u"],
             "logs": {k: logs[k] for k in LOG_KEYS if k in logs},
             "next": torch.randn((8,), generator=gen)}
 

@@ -42,6 +42,8 @@ Held:
 * a lossy sweep group on a 2 x 2 mesh (cells over the data ranks, each
   off-mesh with the meshless carry) is its solo runs, bit for bit.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -53,6 +55,7 @@ from repro_torch.fl import (Federation, FLConfig, RoundEngine,
                             run_federated_training, softmax_regression,
                             zoo_model)
 from repro_torch.fl import simulator as sim
+from repro_torch.fl.compression import QBLOCK
 from repro_torch.launch.mesh import make_host_mesh, spawn_local
 from repro_torch.models import ModelConfig
 from repro_torch.optim import constant_lr
@@ -207,7 +210,9 @@ def _lossy_run(rank, world, ref, codec, mesh_shape):
     counts, codec_in = {}, []
     carry, logs, masks = _segments(eng, p0, idx, counts, codec_in)
     met = eng.eval_metrics(eng.carry_params(carry), logs)
-    out = {"params": carry[0], "resid": carry[1], "masks": masks,
+    # the carry holds the rank's tiles on a model axis > 1
+    out = {"params": eng.whole_params(carry[0]), "resid": carry[1],
+           "masks": masks,
            "ms": eng.model_shards, "counts": counts, "v": codec_in,
            **{k: met[k].numpy() for k in ("acc", "c1c2", "mask_tpr",
                                            "mask_fpr")}}
@@ -357,13 +362,20 @@ def _steps(codec, v):
     return step, t - np.floor(t)
 
 
-def _ties(codec, vs):
+def _ties(codec, vs, dvs=None):
     """Per round, the codec input's step and where it lies within 1 % of
-    a step of a rounding tie."""
+    a step of a rounding tie, or, given ``dvs`` (per round, how far the
+    codec inputs of the two runs compared lie apart), within twice that
+    distance: on a model axis > 1 the split computes each update with
+    other partial sums than the meshless run (and than the reference's
+    GSPMD split), so the two runs' inputs differ by their rounding, not
+    by 1e-7 of a step, and straddle a tie that far from it."""
     out = []
-    for v in vs:
+    for r, v in enumerate(vs):
         step, frac = _steps(codec, v)
-        out.append((step, np.abs(frac - 0.5) < 1e-2))
+        win = 1e-2 if dvs is None else np.maximum(
+            1e-2, 2 * np.abs(dvs[r].numpy()) / np.where(step > 0, step, 1))
+        out.append((step, np.abs(frac - 0.5) < win))
     return out
 
 
@@ -395,20 +407,21 @@ def _params_close(codec, got, want_leaves, vs, masks, what):
             (what, k, np.abs(g - w).max(), tol)
 
 
-def _resid_close(codec, got, want, vs, what):
+def _resid_close(codec, got, want, vs, what, dvs=None):
     """Residual planes: within 1e-5·max|x| + 1e-6, except at entries
     where a codec input of some round lies within 1 % of a step of a
-    rounding tie: a 1e-7 difference in the update rounds the two runs'
-    values to neighbouring levels there, and their residuals then differ
-    by one step (``test_torch_slice3.py``'s boundary steps).  Such
-    entries are rare, and each differs by at most one step."""
+    rounding tie (or within twice ``dvs``, :func:`_ties`): a small
+    difference in the update rounds the two runs' values to neighbouring
+    levels there, and their residuals then differ by one step
+    (``test_torch_slice3.py``'s boundary steps).  Such entries are rare,
+    and each differs by at most one step."""
     g, w = got.numpy().astype(np.float64), want.astype(np.float64)
     assert g.shape == w.shape, what
     tol = 1e-5 * np.abs(w).max() + 1e-6
     off = np.abs(g - w) > tol
     assert off.mean() < 1e-3, (what, int(off.sum()))
     if off.any():
-        parts = _ties(codec, vs)
+        parts = _ties(codec, vs, dvs)
         step = np.maximum.reduce([p[0] for p in parts])
         tie = np.logical_or.reduce([p[1] for p in parts])
         assert tie[off].all(), (what, "a step away from a rounding tie")
@@ -440,8 +453,13 @@ def test_lossy_model_mesh_agrees_with_the_references(codec, ref, mesh_runs):
         assert run.get("whole_plane_cut", codec == "int8")
         assert run["hist_finite"]
         assert run["uplink"] == int(ref[P + "uplink"])
+    # how far the split moved each codec input from the meshless run's
+    base = _lossy_run(0, 1, ref, codec, None)
+    layout = sharding.blocked_layout(base["params"], 2)
+    dvs = [vs[r] - torch.cat([layout.rows(base["v"][r], s)
+                              for s in range(2)], dim=1) for r in range(2)]
     _resid_close(codec, _plane(mesh_runs, codec), ref[P + "resid"], vs,
-                 (codec, "resid"))
+                 (codec, "resid"), dvs)
 
 
 def test_bf16_model_mesh_agrees_with_the_meshless_run(ref, mesh_runs):
@@ -456,19 +474,39 @@ def test_bf16_model_mesh_agrees_with_the_meshless_run(ref, mesh_runs):
         _params_close("bf16", run["params"],
                       [v.numpy() for v in base["params"].values()], vs,
                       run["masks"], ("meshless", rank))
+        dvs = [v - layout.rows(b, rank % 2)
+               for v, b in zip(run["v"], base["v"])]
         _resid_close("bf16", run["resid"],
                      layout.rows(base["resid"], rank % 2).numpy(),
-                     run["v"], ("resid", rank))
+                     run["v"], ("resid", rank), dvs)
+
+
+def _guide_gathers(params, ms=2):
+    """The leaves whose tile cuts a QBLOCK group of the whole tensor: an
+    int8 guide quantises such a leaf whole, from one ``all_gather`` of the
+    tiles (``compression.quantize_tree``)."""
+    n = 0
+    for k, v in params.items():
+        d = sharding.api._model_split(sharding.api._ref_path(k), v.shape, ms)
+        if d is not None and \
+                (v.shape[d] // ms) * math.prod(v.shape[d + 1:]) % QBLOCK:
+            n += 1
+    return n
 
 
 def test_a_lossy_round_adds_no_collective(mesh_runs):
     """Per round the f32 stream issues one all_reduce more than the bf16
-    one (its non-finite guard); the residual issues none."""
+    one (its non-finite guard); the residual issues none.  An int8 guide
+    adds one all_gather a leaf whose tile cuts a QBLOCK group (one guide
+    block a round here)."""
     for r in mesh_runs:
         got, f32 = r["bf16"]["counts"], r["bf16"]["f32_counts"]
         assert got["all_gather"] == f32["all_gather"] > 0
         assert got["all_reduce"] == f32["all_reduce"] - CFG["rounds"] > 0
-        assert r["int8"]["counts"] == got
+        n = _guide_gathers(r["int8"]["params"])
+        assert n > 0
+        assert r["int8"]["counts"] == {
+            **got, "all_gather": got["all_gather"] + CFG["rounds"] * n}
 
 
 def test_the_refusals_that_stay_fire_from_the_engine(mesh_runs):
