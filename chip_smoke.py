@@ -4840,6 +4840,214 @@ def phase_mesh_ms2(card):
     return rows, sv[0]["counts"]
 
 
+# ----------------------------------------------------------------------
+# slice 16 (S6f): the dense round split over the data ranks
+# ----------------------------------------------------------------------
+
+MD2_N, MD2_PER, MD2_CHUNK = 1024, 8, 64   # [engine]'s 1,024-client S1
+MD2_ROUNDS = 10
+MD2_TIMEOUT = 600                # the two ranks' spawn, in seconds
+
+
+def md2_cases():
+    """[mesh-data2]'s two runs, each 10 rounds of dense diversefl under
+    sign_flip in segment mode: "S1 1024" is [engine]'s 1,024-client S1
+    (8 samples a client, batch 1, blocks of 64), whose clients two data
+    ranks tile; "S1 23" is S1 itself, whose 23 clients they do not.
+    -> (model, {tag: (a function making the federation, config)})."""
+    n = MD2_N
+    x, y = make_mnist_like(torch.Generator(device="cuda").manual_seed(0),
+                           n * MD2_PER)
+    ndata = FederatedData.from_partitions(partition_sorted_shards(x, y, n),
+                                          10)
+    data, tx, ty = make_federation_data()
+    soft = softmax_regression()
+    ncfg = FLConfig(n_clients=n, f=n // 5, rounds=MD2_ROUNDS, eval_every=1,
+                    batch_size=1, l2=0.0, client_chunk=MD2_CHUNK,
+                    aggregator="diversefl",
+                    attack=AttackConfig(kind="sign_flip"), seed=SEED)
+    cfg = FLConfig(rounds=MD2_ROUNDS, aggregator="diversefl",
+                   attack=AttackConfig(kind="sign_flip"), batch_size=50,
+                   eval_every=MD2_ROUNDS, seed=SEED)
+
+    def fed(d, c):
+        return lambda: Federation.create(soft, d, tx, ty, c, torch.Generator(
+            device="cuda").manual_seed(100 + SEED))
+    return soft, {"S1 1024": (fed(ndata, ncfg), ncfg),
+                  "S1 23": (fed(data, cfg), cfg)}
+
+
+def md2_run(model, fed, cfg, mesh=None):
+    """``cfg`` in segment mode on ``mesh``, warmed once, then timed.  ->
+    (history, ms/round, peak GiB above the run's start, host syncs,
+    launches, collective records, the rows the rank computes)."""
+    eng = RoundEngine(model, fed, cfg, mesh=mesh, batch_mode="segment")
+    mode_run(model, fed, cfg, "engine", engine=eng)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    with sharding.record_collectives() as recs:
+        h, ms, syncs, counts, _, _ = mode_run(model, fed, cfg, "engine",
+                                              engine=eng)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    with sharding.use_mesh(mesh):
+        rows = eng._body.client_rows()
+    return h, ms, peak, syncs, counts, recs, rows
+
+
+def md2_rank(rank, world, path):
+    """One of the two gloo ranks on the card: a 2 x 1 ("data", "model")
+    mesh; each run of :func:`md2_cases` held against the meshless run in
+    ``path`` (written by :func:`phase_mesh_data2`): bitwise, or else
+    within 1e-5·max|x| + 1e-6 with the masks equal.  -> a summary a
+    run."""
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(2, 1)
+    if (mesh.device_type, tuple(mesh.shape)) != (torch.device(DEV).type,
+                                                 (2, 1)):
+        raise AssertionError(f"[mesh-data2] built {mesh}")
+    want = torch.load(path, weights_only=False)
+    model, cases = md2_cases()
+    out = {"c": sharding.client_index(mesh)}
+    for tag, (fed_fn, cfg) in cases.items():
+        h, ms, peak, syncs, counts, recs, rows = md2_run(model, fed_fn(),
+                                                         cfg, mesh)
+        w = want[tag]
+        bitwise = all(torch.equal(v.cpu(), w["params"][k])
+                      for k, v in h["params"].items()) and all(
+            h[k] == w["hist"][k] for k in ("acc", "mask_tpr", "mask_fpr")) \
+            and all(np.array_equal(a, b) for a, b in zip(h["c1c2"],
+                                                         w["hist"]["c1c2"]))
+        errs = [ms2_within(v, w["params"][k], None, cfg.rounds)
+                for k, v in h["params"].items()]
+        out[tag] = dict(
+            ms=ms, peak=peak, syncs=syncs, counts=counts, rows=rows,
+            bitwise=bitwise, err=max(e for e, _ in errs),
+            within=all(ok for _, ok in errs),
+            masks=ms2_same_masks(h, w["hist"]), acc=h["acc"][-1],
+            records=[(r["kind"], r["shape"]) for r in recs],
+            bytes=collective_bytes(recs))
+        del h
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_data2(card):
+    """The dense round split over two data ranks: two gloo ranks on the
+    one card, a 2 x 1 mesh.  [engine]'s 1,024-client S1 splits (each rank
+    its 512 clients: 8 of the meshless run's blocks of 64, the similarity
+    kernel on its rows, the update rows and the statistics gathered);
+    S1's 23 clients run whole on each rank.  Each against its meshless
+    run in this call.  -> the similarity kernel's row at the rank's
+    shape."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_local
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    model, cases = md2_cases()
+    want, base = {}, {}
+    for tag, (fed_fn, cfg) in cases.items():
+        h, ms, peak, syncs, counts, recs, rows = md2_run(model, fed_fn(),
+                                                         cfg)
+        exp = expected_counts("diversefl", cfg.rounds)
+        if counts != exp or syncs != 1 or recs or rows is not None:
+            raise AssertionError(f"[mesh-data2] meshless {tag}: launches "
+                                 f"{counts} (want {exp}), {syncs} syncs, "
+                                 f"{len(recs)} collectives, rows {rows}")
+        finite_history(f"[mesh-data2] meshless {tag}", h)
+        want[tag] = {"params": {k: v.cpu() for k, v in h["params"].items()},
+                     "hist": {k: h[k] for k in ("acc", "mask_tpr",
+                                                "mask_fpr", "c1c2")}}
+        base[tag] = (ms, peak, h["acc"][-1], rates(h))
+        del h
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "meshless.pt")
+        torch.save(want, path)
+        t1 = time.perf_counter()
+        ranks = spawn_local(md2_rank, 2, (path,), backend="gloo",
+                            timeout=MD2_TIMEOUT, threads=MS2_THREADS,
+                            workdir=d)
+        spawn_s = time.perf_counter() - t1
+    if [r["c"] for r in ranks] != [0, 1]:
+        raise AssertionError(f"[mesh-data2] data ranks "
+                             f"{[r['c'] for r in ranks]}")
+    for tag, (_, cfg) in cases.items():
+        C, R = cfg.n_selected, 2
+        split = tag == "S1 1024"
+        exp = expected_counts("diversefl", cfg.rounds)
+        D = sum(v.numel() for v in want[tag]["params"].values())
+        # a split round gathers the rank's update rows and statistics
+        rec_want = sorted([("all-gather", (C // R, D)),
+                           ("all-gather", (C // R, 3))] * cfg.rounds) \
+            if split else []
+        for c, r in enumerate(x[tag] for x in ranks):
+            rows = (c * C // R, (c + 1) * C // R) if split else None
+            bad = []
+            if r["counts"] != exp:
+                bad.append(f"launches {r['counts']} (want {exp})")
+            if r["syncs"] != 1:
+                bad.append(f"{r['syncs']} host syncs")
+            if r["rows"] != rows:
+                bad.append(f"rows {r['rows']} (want {rows})")
+            if sorted(r["records"]) != rec_want:
+                bad.append(f"collectives {r['records']}")
+            if not r["masks"] or not (r["bitwise"] or r["within"]):
+                bad.append(f"masks equal {r['masks']}, bitwise "
+                           f"{r['bitwise']}, within 1e-5·max|x| + 1e-6 "
+                           f"{r['within']} (max |err| {r['err']:.4g})")
+            if not split and not r["bitwise"]:
+                bad.append("a whole round is not bitwise the meshless one")
+            if bad:
+                raise AssertionError(f"[mesh-data2] {tag} rank {c}: "
+                                     + "; ".join(bad))
+        held = "bitwise" if all(x[tag]["bitwise"] for x in ranks) else (
+            f"within 1e-5·max|x| + 1e-6 (max |err| "
+            f"{max(x[tag]['err'] for x in ranks):.4g}), masks equal, not "
+            f"bitwise")
+        coll = {k: round(v / cfg.rounds / 1e6, 6)
+                for k, v in ranks[0][tag]["bytes"].items()}
+        ms_b, peak_b, acc_b, rates_b = base[tag]
+        log(f"[mesh-data2] {tag}: softmax regression, {C} clients, "
+            f"{cfg.rounds} rounds of dense diversefl under sign_flip, "
+            f"segment stacks, on a 2 x 1 mesh of two gloo ranks on the one "
+            f"card: "
+            + (f"each rank its {C // R} clients (rows {ranks[0][tag]['rows']}"
+               f", {ranks[1][tag]['rows']}); " if split else
+               f"{C} does not tile 2, each rank runs the round whole; ")
+            + f"params and masks {held} against the meshless run; ms/round "
+            f"rank 0 {ranks[0][tag]['ms']:.3f}, rank 1 "
+            f"{ranks[1][tag]['ms']:.3f} (meshless {ms_b:.3f}); peak GiB "
+            f"above the run's start rank 0 {ranks[0][tag]['peak']:.4f}, "
+            f"rank 1 {ranks[1][tag]['peak']:.4f} (meshless {peak_b:.4f}); "
+            f"collectives a round: "
+            + (f"{len(rec_want) // cfg.rounds} all_gather, MB by kind "
+               f"{coll}" if split else "0")
+            + f"; acc {ranks[0][tag]['acc']:.4f} (meshless {acc_b:.4f}), "
+            f"{rates_b}; launches a rank {nonzero(ranks[0][tag]['counts'])},"
+            f" 1 host sync; the collectives are gloo's, through the host, "
+            f"and the two ranks share the card's SMs: not a multi-card "
+            f"number [{card}]")
+    log(f"[mesh-data2] the two ranks' spawn {spawn_s:.1f} s [{card}]")
+    gen = torch.Generator(device=DEV).manual_seed(1616)
+    n, d = MD2_N // 2, 7850
+    z = torch.randn((n, d), generator=gen, device=DEV)
+    g = z + 0.5 * torch.randn((n, d), generator=gen, device=DEV)
+    row = time_kernel(
+        card, "similarity_stats", (n, d),
+        (lambda z, g, S: similarity_cuda(z, g),
+         lambda z, g, S: similarity_plain(z, g),
+         lambda z, g, S: torch.bmm(S, S.transpose(1, 2))),
+        (z, g, torch.stack([z, g], dim=1)),
+        bound_ms(2 * n * d * 4 + n * 3 * 4, 6 * n * d),
+        check_similarity(z, g))
+    del z, g
+    torch.cuda.empty_cache()
+    log(f"[mesh-data2] {time.perf_counter() - t0:.1f} s [{card}]")
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4905,6 +5113,9 @@ def main():
     # heads: its launches join the main path's
     for name, n in ms2_counts.items():
         counts[name] = counts.get(name, 0) + n
+    # slice 16 (S6f): the dense round split over two data ranks, held
+    # against the meshless run; its launches are asserted a rank there
+    phase_mesh_data2(card)
     check_capture_failure(card)
     kernels = []
     for name, meta in KERNEL_META.items():

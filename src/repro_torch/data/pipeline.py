@@ -66,29 +66,51 @@ class FederatedData:
         idx = idx.to(self.device)
         return self.x[rows, idx], self.y[rows, idx]
 
+    def minibatch_idx(self, batch_size: int,
+                      generator: Optional[torch.Generator] = None,
+                      idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The (N, m) row indices of one mini-batch per client, drawn with
+        replacement (or ``idx``, checked)."""
+        if idx is None:
+            return torch.randint(0, self.per_client,
+                                 (self.n_clients, batch_size),
+                                 generator=generator,
+                                 device=_draw_device(generator, self.device))
+        if tuple(idx.shape) != (self.n_clients, batch_size):
+            raise ValueError(f"minibatch idx must be ({self.n_clients}, "
+                             f"{batch_size}), got {tuple(idx.shape)}")
+        return idx
+
     def minibatch(self, batch_size: int,
                   generator: Optional[torch.Generator] = None,
                   idx: Optional[torch.Tensor] = None):
         """One mini-batch per client, drawn with replacement: (N, m, ...),
         (N, m).  ``idx`` (N, m) gives the draw explicitly."""
-        if idx is None:
-            idx = torch.randint(0, self.per_client,
-                                (self.n_clients, batch_size),
-                                generator=generator,
-                                device=_draw_device(generator, self.device))
-        elif tuple(idx.shape) != (self.n_clients, batch_size):
-            raise ValueError(f"minibatch idx must be ({self.n_clients}, "
-                             f"{batch_size}), got {tuple(idx.shape)}")
-        return self._gather(idx)
+        return self._gather(self.minibatch_idx(batch_size, generator, idx))
+
+    def client_minibatch(self, idx: torch.Tensor, clients: torch.Tensor):
+        """The mini-batches of the ``clients`` ids only, from the whole
+        (N, m) draw ``idx``: rows ``clients`` of :meth:`minibatch`'s
+        stacks, bit for bit, without building the others."""
+        clients = clients.to(self.device)
+        idx = idx.to(self.device)[clients]
+        return self.x[clients[:, None], idx], self.y[clients[:, None], idx]
 
     def segment_minibatches(self, rounds: int, batch_size: int,
                             generator: Optional[torch.Generator] = None,
-                            idx: Optional[torch.Tensor] = None):
+                            idx: Optional[torch.Tensor] = None,
+                            rows: Optional[Tuple[int, int]] = None):
         """Minibatch stacks for one segment of ``rounds`` rounds of the
         round engine: (T, N, m, ...), (T, N, m).  Row t is drawn exactly as
         the t-th of ``rounds`` successive :meth:`minibatch` calls on
         ``generator`` would draw it, so a segment's stack equals the inline
-        draws bitwise.  ``idx`` (T, N, m) gives the draws explicitly."""
+        draws bitwise.  ``idx`` (T, N, m) gives the draws explicitly.
+
+        ``rows`` ``(lo, hi)`` builds only those client rows, (T, hi - lo,
+        m, ...), as a data rank of a split round holds them
+        (``sharding.client_split``): the whole (T, N, m) index tensor is
+        still drawn, so the generator stays in step with the one-process
+        run, and the stacks are the whole stacks' rows bit for bit."""
         if idx is None:
             idx = torch.stack([
                 torch.randint(0, self.per_client,
@@ -100,10 +122,10 @@ class FederatedData:
             raise ValueError(f"segment idx must be ({rounds}, "
                              f"{self.n_clients}, {batch_size}), got "
                              f"{tuple(idx.shape)}")
-        rows = torch.arange(self.n_clients, device=self.device)[None, :,
-                                                                None]
-        idx = idx.to(self.device)
-        return self.x[rows, idx], self.y[rows, idx]
+        lo, hi = (0, self.n_clients) if rows is None else rows
+        ids = torch.arange(lo, hi, device=self.device)[None, :, None]
+        idx = idx.to(self.device)[:, lo:hi]
+        return self.x[ids, idx], self.y[ids, idx]
 
     def sample_size(self, frac: float) -> int:
         """The enclave sample size s = frac * n_j (at least 1)."""

@@ -26,9 +26,14 @@ fails raises: nothing falls back to eager rounds.
 ``mesh=`` (default: the active ``sharding.get_mesh()``) runs the same
 rounds on a client x model ``DeviceMesh`` (``sharding/api.py``): each data
 rank folds its own client blocks and the partial states are gathered
-(``fl/streaming.py``); on a model axis > 1 the carry holds the rank's
-tiles of the params (``sharding.place_params``, once, on the engine's own
-mesh), every client's update is computed split over the model group, and
+(``fl/streaming.py``); where a round splits over the data ranks
+(``sharding.client_split``: a model axis of 1 and client rows the ranks
+tile) each rank builds only its rows of the segment stacks and computes
+only their Steps 2-3, and the dense round gathers the update rows and
+the Step 4 statistics in client order (``fl/simulator.make_round_body``);
+on a model axis > 1 the carry holds the rank's tiles of the params
+(``sharding.place_params``, once, on the engine's own mesh), every
+client's update is computed split over the model group, and
 the federated state is the rank's row of the blocked (ms, L) layout.  So
 is the carry's: under a lossy codec the rank holds columns
 ``[s·L, (s+1)·L)`` of the (N, D) error-feedback residual plane (the
@@ -37,9 +42,10 @@ pad-free leaves, so ms·L == D), and in async rounds row ``s`` of the
 (B, ms, L) staleness slab, a (B, L) tensor.  The layout is the engine's
 own mesh's, whatever mesh is active when the carry is built.  A 1 x 1
 mesh is the meshless run: no collective, bit for bit.  A data-axis mesh
-is bitwise the meshless run with ``stream_shards`` equal to its rank
-count; a model axis > 1 agrees to fp tolerance (the criterion statistics
-sum shard partials, and the split layers sum partial products), and every
+is bitwise the meshless run (a streaming one with ``stream_shards`` equal
+to its rank count); a model axis > 1 agrees to fp tolerance (the
+criterion statistics sum shard partials, and the split layers sum
+partial products), and every
 rank of a model group returns the same whole params
 (``sharding.gather_params``, once a run).
 """
@@ -51,10 +57,9 @@ from typing import Optional
 
 import torch
 
-from ..sharding.api import (all_gather, blocked_layout, client_group,
-                            gather_params, get_mesh, model_index,
-                            model_shard_count, place_params, sweep_put,
-                            use_mesh)
+from ..sharding.api import (blocked_layout, gather_clients, gather_params,
+                            get_mesh, model_index, model_shard_count,
+                            place_params, sweep_put, use_mesh)
 from . import telemetry
 from .faults import init_async_state
 from .metrics import make_eval_fn
@@ -353,13 +358,19 @@ class RoundEngine:
         return [(s, min(T, R - s)) for s in range(0, R, T)]
 
     def _segment_batches(self, n, generator, draws, start):
+        """A segment's minibatch stacks: on a round that splits over the
+        data ranks (the body's ``client_rows``, under the active mesh)
+        only this rank's rows, unless the draws inject the selection;
+        else all N."""
         if self.batch_mode != "segment":
             return None
-        idx = None if draws is None or "batch_idx" not in draws \
+        draws = draws or {}
+        idx = None if "batch_idx" not in draws \
             else draws["batch_idx"][start:start + n]
+        rows = None if "sel" in draws else self._body.client_rows()
         return self.fed.data.segment_minibatches(
             n, self.cfg.local_steps * self.cfg.batch_size, generator,
-            idx=idx)
+            idx=idx, rows=rows)
 
     @torch.no_grad()
     def run_segment(self, carry, generator, lrs, scen=None, draws=None):
@@ -459,11 +470,9 @@ class RoundEngine:
                 metrics_out.append(m)
         if len(mine) == G:
             return params_out, metrics_out, eval_rounds
-        grp = client_group(self.mesh)
 
         def gathered(*xs):
-            out = all_gather(torch.stack(xs), grp)
-            return list(out.reshape((G,) + tuple(out.shape[2:])).unbind(0))
+            return list(gather_clients(torch.stack(xs), self.mesh).unbind(0))
         params_out = _unstack(_zip_map(gathered, params_out), G)
         metrics_out = _unstack(_zip_map(gathered, metrics_out), G)
         return params_out, metrics_out, eval_rounds

@@ -60,6 +60,11 @@ class AggregationContext:
     dfl: DiverseFLConfig = DiverseFLConfig()
     byz_mask: Optional[torch.Tensor] = None     # ground truth (oracle only)
     guides: Optional[torch.Tensor] = None       # G (N, D), enclave Step 3
+    stats: Optional[torch.Tensor] = None        # (N, 3) [z·g, ‖z‖², ‖g‖²]
+    #                                             in place of the guides
+    #                                             (a split round's ranks
+    #                                             compute them from their
+    #                                             own rows)
     root_update: Optional[torch.Tensor] = None  # (D,) FLTrust root direction
     resample_s: int = 2                         # resampling s_R
     generator: Optional[torch.Generator] = None  # resampling's draw ...
@@ -115,7 +120,7 @@ def aggregate(name: str, U: torch.Tensor, ctx: AggregationContext):
 def _diversefl(U, ctx):
     """Per-client C1/C2 criteria + masked mean (Eq. 2-6)."""
     delta, mask, (dot, zz, gg) = kops.diversefl_step45(U, ctx.guides,
-                                                       ctx.dfl)
+                                                       ctx.dfl, ctx.stats)
     return delta, {"mask": mask, "z_sq": zz, "g_sq": gg,
                    **criterion_logs(dot, zz, gg)}
 

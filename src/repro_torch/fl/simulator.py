@@ -54,8 +54,9 @@ from ..core.attacks import (UPDATE_ATTACKS, AttackConfig, attack_update,
 from ..core.diversefl import DiverseFLConfig, sgd_round_once
 from ..data.pipeline import FederatedData
 from ..device import DeviceLike, resolve_device
-from ..sharding.api import (BlockedLayout, model_group, model_index,
-                            model_shard_count)
+from ..kernels import ops as kops
+from ..sharding.api import (BlockedLayout, client_split, gather_clients,
+                            model_group, model_index, model_shard_count)
 from . import telemetry
 from .chunking import chunked_vmap, tree_leaves, tree_map
 from .compression import available_codecs, encode_with_feedback, get_codec
@@ -67,7 +68,8 @@ from .metrics import (BackdoorEval, comm_stats, make_backdoor_eval,
 from .server import (KERNEL_AGG_RULES, AggregationContext, SecureServer,
                      available_aggregators, get_aggregator)
 from .small_models import SmallModel
-from .streaming import fallback_reason, get_streaming, stream_aggregate
+from .streaming import (fallback_reason, fold_plan, get_streaming,
+                        stream_aggregate)
 
 logger = logging.getLogger(__name__)
 
@@ -486,13 +488,30 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     ``slab_noise`` (B, D) (whole on a model axis too: the attack hits the
     whole update before the cut), ``resample_ids`` (C, s_R) client ids.
 
+    On a mesh of R > 1 data ranks the round splits where
+    ``sharding.client_split`` says so (``body.client_rows()``, asked
+    under the active mesh): each rank builds and computes only its rows
+    ``[lo, hi)`` of the C selected clients.  It draws every round draw
+    whole, as the one-process round does (the noise block by block,
+    keeping its own rows), so every rank's generator stays in step.  On
+    the dense path it runs its rows' data attacks, local SGD, update
+    attacks, codec and guides and the (C/R, 3) statistics of Step 4; the
+    statistics, the update rows and, under a lossy codec, the new
+    residual rows are gathered in client order, so Steps 4-5 see exactly
+    the one-process (C, D) update matrix and the round is the one-process
+    round bit for bit.  The guide matrix never leaves its rank.  On the
+    streaming path the rank's rows are exactly the blocks it folds.
+    ``batch`` may then hold the rank's rows only (the round engine's
+    segment stacks).  Elsewhere the round runs whole on every rank, with
+    no collective.
+
     No step of the round reads a device value on the host, so a run
     dispatches without waiting on the card and one round can be captured
     in a CUDA graph.
 
     The body exposes ``streaming`` (the rule streams), ``streaming_fallback``
-    (why it does not, when streaming was asked for), ``lossy``, ``codec``
-    and ``async_mode``."""
+    (why it does not, when streaming was asked for), ``lossy``, ``codec``,
+    ``async_mode`` and ``client_rows``."""
     E, m = cfg.local_steps, cfg.batch_size
     acfg = cfg.attack
     N, C = cfg.n_clients, cfg.n_selected
@@ -560,6 +579,34 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     def draw_noise(generator, rows, d):
         return torch.randn((rows, d), generator=generator, device=dev)
 
+    def draw_noise_rows(generator, d, split):
+        """The (C, d) gaussian attack noise, one ``client_chunk`` block of
+        rows at a time; on a split round every block is drawn (the
+        generator stays in step) and the rank keeps its rows."""
+        rows = C if chunk is None or chunk >= C else chunk
+        lo, hi = (0, C) if split is None else split
+        keep = []
+        for b0 in range(0, C, rows):
+            z = draw_noise(generator, rows, d)
+            a, e = max(lo, b0), min(hi, b0 + rows)
+            if a < e:
+                keep.append(z[a - b0:e - b0])
+        return torch.cat(keep)
+
+    def client_rows():
+        """``(lo, hi)``: the rows of the round's C clients this rank
+        computes when the round splits over the active mesh's data ranks
+        (``sharding.client_split``); None where it runs whole.  Async
+        rounds run whole: the straggler slab refills from any client's
+        batch."""
+        if async_mode:
+            return None
+        if stream_entry is None:
+            return client_split(C)
+        block, _, pods, shards = fold_plan(C, chunk, cfg.stream_shards,
+                                           cfg.pods)
+        return client_split(C, chunk=block, groups=pods * shards)
+
     def body(carry, lr, generator=None, *, batch_idx=None, sel=None,
              noise=None, resample_ids=None, fault_rows=None,
              slab_noise=None, scen=None, batch=None, like=None):
@@ -572,17 +619,42 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
             params = carry
         if scen is None:
             scen = default_scen
-        xb, yb = fed.data.minibatch(E * m, generator, idx=batch_idx) \
-            if batch is None else batch
-        xb = xb.reshape((N, E, m) + tuple(xb.shape[2:]))
-        yb = yb.reshape(N, E, m)
+        split = client_rows()
+        # a batch of fewer than N rows holds this rank's rows of a split
+        # round of all N clients
+        rank_batch = batch is not None and batch[1].shape[0] != N
+        if batch is None:
+            idx = fed.data.minibatch_idx(E * m, generator, idx=batch_idx)
+        elif rank_batch and (split is None or sel is not None or C < N
+                             or batch[1].shape[0] != split[1] - split[0]):
+            raise ValueError(
+                f"batch holds {batch[1].shape[0]} of the {N} clients' rows, "
+                f"but this rank computes rows {split} of the round's {C} "
+                f"selected clients{'' if sel is None else ' (sel given)'}: "
+                f"rank-row stacks need the round's own split of all N "
+                f"clients")
         # Step 2 preamble: the server selects the participating subset S^i
         if sel is None:
             sel = torch.randperm(N, generator=generator, device=dev)[:C] \
                 if C < N else torch.arange(N, device=dev)
         sel = sel.to(dev)
-        xb, yb = xb[sel], yb[sel]
         byz = scen["byz"][sel]
+        # the selected clients this rank computes: all of them, or its
+        # rows of a split round
+        rsel, rbyz, rnoise = sel, byz, noise
+        if split is not None:
+            lo, hi = split
+            rsel, rbyz = sel[lo:hi], byz[lo:hi]
+            rnoise = None if noise is None else noise[lo:hi]
+        if batch is None:
+            xb, yb = fed.data.client_minibatch(idx, rsel)
+        elif rank_batch:
+            xb, yb = batch
+        else:
+            xb, yb = batch[0][rsel], batch[1][rsel]
+        n_r = int(rsel.shape[0])
+        xb = xb.reshape((n_r, E, m) + tuple(xb.shape[2:]))
+        yb = yb.reshape(n_r, E, m)
 
         live = strag = None
         if async_mode:
@@ -603,15 +675,15 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
 
         # ---- data-level attacks ----
         if acfg.kind == "label_flip":
-            yb = torch.where(byz[:, None, None], flip_labels(yb, n_classes),
+            yb = torch.where(rbyz[:, None, None], flip_labels(yb, n_classes),
                              yb)
         elif acfg.kind == "backdoor":
             xp, yp = poison_backdoor(
-                xb.reshape((C, E * m) + tuple(xb.shape[3:])),
-                yb.reshape(C, E * m), acfg)
-            bsel = byz.reshape((-1,) + (1,) * (xb.dim() - 1))
+                xb.reshape((n_r, E * m) + tuple(xb.shape[3:])),
+                yb.reshape(n_r, E * m), acfg)
+            bsel = rbyz.reshape((-1,) + (1,) * (xb.dim() - 1))
             xb = torch.where(bsel, xp.reshape(xb.shape), xb)
-            yb = torch.where(byz[:, None, None], yp.reshape(yb.shape), yb)
+            yb = torch.where(rbyz[:, None, None], yp.reshape(yb.shape), yb)
         logs = {"byz": byz, "sel": sel}
         root = fed.server.compute_root_update(
             params, grad_fn, lr, E, fed.root_x, fed.root_y) \
@@ -719,13 +791,13 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 extra_state, stale_logs = rule.update_block(
                     rule.init(d, dev), astate["u"], land_ctx)
 
-            args = (xb, yb, byz, sel, noise)
+            args = (xb, yb, rbyz, rsel, rnoise)
             if async_mode:
                 args = args + (live, fault_rows)
             out = stream_aggregate(
                 rule, block_fn, args, chunk, d=d, shards=cfg.stream_shards,
                 pods=cfg.pods, block_extra=lossy, extra_state=extra_state,
-                skip_fn=skip_fn)
+                skip_fn=skip_fn, clients=C)
             delta, agg_logs, client_logs = out[:3]
             if lossy:
                 resid.index_copy_(0, sel, out[3])
@@ -745,23 +817,34 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
 
             # ---- update-level attacks ----
             if update_attack:
-                if gaussian and noise is None:
-                    rows = C if chunk is None or chunk >= C else chunk
-                    noise = torch.cat([draw_noise(generator, rows, U.shape[1])
-                                       for _ in range(-(-C // rows))])[:C]
-                U = apply_update_attacks(U, byz, noise, scen)
+                if gaussian and rnoise is None:
+                    rnoise = draw_noise_rows(generator, U.shape[1], split)
+                U = apply_update_attacks(U, rbyz, rnoise, scen)
             if lossy:
                 # the registry rules receive the decoded updates: the bits
                 # the server recovers from the wire
-                _, U, new_resid = encode_with_feedback(codec, U, resid[sel])
+                _, U, new_resid = encode_with_feedback(codec, U, resid[rsel])
+                if split is not None:
+                    new_resid = gather_clients(new_resid)
                 resid.index_copy_(0, sel, new_resid)
 
             # ---- Steps 3-5: SecureServer (guides / root -> registry) ----
             G = fed.server.compute_guides(
-                params, grad_fn, lr, E, select=sel, client_chunk=chunk,
+                params, grad_fn, lr, E, select=rsel, client_chunk=chunk,
                 codec=wire) if entry.needs_guides else None
+            stats = None
+            if split is not None:
+                # a row's statistics depend on that row alone: the rank
+                # computes its rows' and only the (C, 3) statistics cross
+                # the ranks, never the guides.  The update rows are
+                # gathered in client order: the rules see the one-process
+                # matrix
+                if G is not None:
+                    stats = gather_clients(kops.similarity_stats(U, G))
+                    G = None
+                U = gather_clients(U)
             ctx = AggregationContext(
-                f=cfg.f, dfl=cfg.dfl, byz_mask=byz, guides=G,
+                f=cfg.f, dfl=cfg.dfl, byz_mask=byz, guides=G, stats=stats,
                 root_update=root, resample_s=cfg.resample_s,
                 generator=generator, resample_ids=resample_ids)
             delta, agg_logs = fed.server.aggregate(cfg.aggregator, U, ctx)
@@ -854,6 +937,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     body.lossy = lossy
     body.codec = codec
     body.async_mode = async_mode
+    body.client_rows = client_rows
     return body
 
 

@@ -54,8 +54,8 @@ import torch
 
 from ..core.diversefl import criterion_logs, diversefl_mask
 from ..kernels import ops as kops
-from ..sharding.api import (all_gather, all_reduce, client_group,
-                           client_index, data_shard_count, get_mesh,
+from ..sharding.api import (all_reduce, client_index,
+                           data_shard_count, gather_clients, get_mesh,
                            model_group, model_shard_count, pod_data_counts)
 from .chunking import (block_valid, group_blocks_2d, pad_to_blocks,
                        resolve_pods, resolve_shards, tree_leaves, tree_map,
@@ -351,13 +351,31 @@ class _Stack:
             dst[b].copy_(src)
 
 
+def fold_plan(C: int, chunk: Optional[int], shards: Optional[int] = None,
+              pods: Optional[int] = None, mesh=None):
+    """``(chunk, k, P, S)`` of a streaming fold over ``C`` client rows on
+    ``mesh`` (default: the active one): the block size (``C`` for None or
+    ``chunk >= C``), the padded block count, and the pod and per-pod
+    shard counts of :func:`stream_aggregate`'s association."""
+    mesh = mesh if mesh is not None else get_mesh()
+    chunk = C if chunk is None or chunk >= C else chunk
+    k = -(-C // chunk)
+    mesh_pods, mesh_data = pod_data_counts(mesh)
+    P = resolve_pods(pods, k, auto=mesh_pods)
+    S = resolve_shards(shards if shards is not None else
+                       (mesh_data if P > 1 else data_shard_count(mesh)),
+                       k // P)
+    return chunk, k, P, S
+
+
 def stream_aggregate(rule: StreamingAggregator, block_fn: Callable,
                      args: tuple, chunk: Optional[int], *, d: int,
                      shards: Optional[int] = None,
                      pods: Optional[int] = None,
                      block_extra: bool = False,
                      extra_state: Optional[AggState] = None,
-                     skip_fn: Optional[Callable[[int], None]] = None):
+                     skip_fn: Optional[Callable[[int], None]] = None,
+                     clients: Optional[int] = None):
     """Fold per-client updates into ``rule``'s state one ``chunk``-sized
     block at a time; the (C, D) update matrix never exists.
 
@@ -389,6 +407,12 @@ def stream_aggregate(rule: StreamingAggregator, block_fn: Callable,
     a ``block_fn`` that draws from a generator block by block stays in
     step with the one-process fold.
 
+    ``clients`` (default: the rows of ``args``) is the round's whole
+    client count C when ``args`` hold only this rank's rows, as a round
+    split by ``sharding.client_split`` builds them: those rows must be
+    exactly the blocks the rank folds, and the rank indexes its blocks
+    from its own first row.
+
     ``block_extra=True``: ``block_fn`` returns a third element, a
     (chunk, ...) pytree that rides out of the fold beside the logs (the
     error-feedback residual rows), unblocked to (C, ...) and returned
@@ -402,17 +426,12 @@ def stream_aggregate(rule: StreamingAggregator, block_fn: Callable,
     Returns ``(delta, agg_logs, client_logs)`` (plus ``extra``).
     """
     leaves = tree_leaves(args)
-    C = leaves[0].shape[0]
+    n = leaves[0].shape[0]
+    C = n if clients is None else clients
     device = leaves[0].device
-    chunk = C if chunk is None or chunk >= C else chunk
-    blocks, k, _ = pad_to_blocks(args, chunk)
-    valid = block_valid(k, chunk, C, device)
     mesh = get_mesh()
-    mesh_pods, mesh_data = pod_data_counts(mesh)
-    P = resolve_pods(pods, k, auto=mesh_pods)
-    S = resolve_shards(shards if shards is not None else
-                       (mesh_data if P > 1 else data_shard_count(mesh)),
-                       k // P)
+    chunk, k, P, S = fold_plan(C, chunk, shards, pods, mesh)
+    valid = block_valid(k, chunk, C, device)
     # group ids: (P·S, k / (P·S)) block indices, pod-major and contiguous
     groups = list(group_blocks_2d(torch.arange(k), k, P, S).flatten(0, 1))
     G, R = P * S, data_shard_count(mesh)
@@ -422,12 +441,26 @@ def stream_aggregate(rule: StreamingAggregator, block_fn: Callable,
         groups = groups[r * G // R:(r + 1) * G // R]
     b0 = int(groups[0][0])
     nb = sum(len(g) for g in groups)
+    # blocks[b - first] is block b: the whole padded stack, or the rank's
+    # own rows, which must be exactly its blocks
+    first = 0
+    if n != C:
+        if not spread or n != nb * chunk or nb * chunk * R != C:
+            raise ValueError(
+                f"stream_aggregate: args hold {n} of the {C} client rows, "
+                f"but this rank folds blocks {b0}..{b0 + nb - 1} of "
+                f"{chunk} rows ({'spread' if spread else 'not spread'} "
+                f"over {R} data ranks): rank rows need a split fold "
+                f"(sharding.client_split)")
+        first = b0
+    blocks, _, _ = pad_to_blocks(args, chunk)
     logs_out, extra_out = _Stack(nb), _Stack(nb)
 
     def fold(ids) -> AggState:
         state = rule.init(d, device)
         for b in ids.tolist():
-            out = block_fn(tree_map(lambda x, b=b: x[b], blocks), valid[b])
+            out = block_fn(tree_map(lambda x, i=b - first: x[i], blocks),
+                           valid[b])
             U_blk, ctx_blk = out[0], dict(out[1], valid=valid[b])
             state, logs = rule.update_block(state, U_blk, ctx_blk)
             logs_out.put(b - b0, logs)
@@ -445,12 +478,8 @@ def stream_aggregate(rule: StreamingAggregator, block_fn: Callable,
     if spread:
         # this rank's partial states, logs and extras -> every rank's, in
         # group (= block) order
-        grp = client_group(mesh)
-
         def gathered(x):
-            out = all_gather(x, grp)
-            return out.reshape((out.shape[0] * out.shape[1],)
-                               + tuple(out.shape[2:]))
+            return gather_clients(x, mesh)
         stacked = [gathered(torch.stack(leaf)) for leaf in zip(*states)]
         states = [tuple(leaf[i] for leaf in stacked) for i in range(G)]
         logs_buf = tree_map(gathered, logs_buf)

@@ -97,12 +97,17 @@ def robust_aggregate(u: torch.Tensor, f: int = 0
     return robust_agg_plain(u, f)
 
 
-def diversefl_step45(u: torch.Tensor, g: torch.Tensor, cfg: DiverseFLConfig):
+def diversefl_step45(u: torch.Tensor, g: Optional[torch.Tensor],
+                     cfg: DiverseFLConfig,
+                     stats: Optional[torch.Tensor] = None):
     """DiverseFL Steps 4 and 5: (N, D) updates and guides -> (delta (D,),
     keep mask (N,), (z·g, ‖z‖², ‖g‖²)).  One kernel pass over u and g for
     the statistics, the C1/C2 mask on (N,) scalars, one pass over u for
-    the masked mean."""
-    stats = similarity_stats(u, g)
+    the masked mean.  ``stats`` (N, 3), where given, are the statistics
+    already computed (by the data ranks of a split round, each from its
+    own rows), and ``g`` is not read."""
+    if stats is None:
+        stats = similarity_stats(u, g)
     dot, zz, gg = stats.unbind(1)
     mask = diversefl_mask(dot, zz, gg, cfg)
     return masked_aggregate(u, mask), mask, (dot, zz, gg)

@@ -488,6 +488,34 @@ def client_range(n: int, mesh=None):
     return c * n // R, (c + 1) * n // R
 
 
+def client_split(n: int, mesh=None, *, chunk: Optional[int] = None,
+                 groups: Optional[int] = None):
+    """The one rule that splits a round over the data ranks: ``(lo, hi)``,
+    the rows of the round's ``n`` client rows (and of its minibatch
+    stacks) this rank builds and computes, or None where every rank runs
+    the round whole.  A round splits on a mesh of R > 1 data ranks with a
+    model axis of 1 when R tiles ``n``.  A streaming fold (``chunk`` its
+    block size, ``groups`` its fold-group count) also needs R to tile the
+    groups and blocks with no padding row, so that the rank's rows are
+    exactly the blocks it folds.  The round body, the round engine and
+    the segment stacks all ask this rule, so they cannot disagree."""
+    mesh = mesh if mesh is not None else get_mesh()
+    R = data_shard_count(mesh)
+    if mesh is None or R <= 1 or model_shard_count(mesh) > 1 or n % R:
+        return None
+    if groups is not None and (groups % R or n % chunk):
+        return None
+    return client_range(n, mesh)
+
+
+def gather_clients(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The whole client axis from every data rank's block of rows ``x``
+    (the blocks of :func:`client_range`): one ``all_gather`` over the
+    client group, the blocks in client order, ``(R·n, ...)``."""
+    out = all_gather(x, client_group(mesh))
+    return out.reshape((out.shape[0] * out.shape[1],) + tuple(out.shape[2:]))
+
+
 def put_clients_by_shard(build_fn, shape, axis: int = 0, mesh=None):
     """Build this rank's block of a client-stacked array, and only it:
     ``build_fn(lo, hi)`` produces rows ``[lo, hi)`` of client axis
