@@ -218,7 +218,13 @@ Phases (any failure raises and the script exits non-zero):
                payloads) and dequant_fold_update at the rank-row shapes
                (1, 179,907,840), (64, L) and (32, L) of the 3-NN against
                their plain versions, timed cold and warm
- 15. result  - a capture that reads the card on the host fails by name; a
+ 15. [phases] - after [sweep]: the round's phase marks
+               (fl/telemetry.phase).  A graphed run of the 3-NN over 1,024
+               clients (the benchmark's mlp3-xdevice shape) runs the
+               fl_phase_* kernels in PHASES order under the profiler, 4 a
+               round inside the replayed graph and 2 at a segment's eval;
+               graphed equals eager, bit for bit
+ 16. result  - a capture that reads the card on the host fails by name; a
                ``kernels`` JSON line, then ``{"ok": true, ...}`` last
 """
 import contextlib
@@ -3422,6 +3428,84 @@ ZOO_TINY = dict(name="zoo-tiny", n_layers=2, d_model=32, n_heads=4,
 ZOO_FL_SHAPES = ((1, 100_369_280), (4, 94_224_000))
 
 
+PHASE_N, PHASE_PER, PHASE_TAIL = 1024, 50, 2000
+
+
+def phase_marks_seen(prof):
+    """The phases of the fl_phase_* kernels a profile saw run on the
+    card, in device order."""
+    evs = sorted((e.time_range.start, e.name[len("fl_phase_"):])
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.name.startswith("fl_phase_"))
+    return [p for _, p in evs]
+
+
+def phase_phases(card):
+    """The round's phase marks on the card: a graphed 3-NN run of 1,024
+    clients, 50 samples each (the benchmark's mlp3-xdevice shape: batch
+    10, dense diversefl in blocks of 64 under sign_flip, 20 rounds, eval
+    every 10) runs the fl_phase_* kernels in PHASES order, 4 a round from
+    inside the replayed graph and eval, handoff at the eval point of a
+    profiled segment; graphed equals eager, bit for bit."""
+    t0 = time.perf_counter()
+    n, per = PHASE_N, PHASE_PER
+    x, y = make_mnist_like(torch.Generator(device="cuda").manual_seed(0),
+                           n * per)
+    data = FederatedData.from_partitions(partition_sorted_shards(x, y, n),
+                                         10)
+    tx, ty = make_mnist_like(torch.Generator(device="cuda").manual_seed(9),
+                             800)
+    m3 = mlp3()
+    cfg = FLConfig(n_clients=n, f=n // 5, rounds=20, eval_every=10,
+                   batch_size=10, l2=0.0005, client_chunk=64,
+                   aggregator="diversefl",
+                   attack=AttackConfig(kind="sign_flip"), seed=SEED)
+    lr = inv_sqrt_lr(0.05)
+
+    def engine(graph):
+        fed = Federation.create(m3, data, tx, ty, cfg, torch.Generator(
+            device="cuda").manual_seed(100 + SEED))
+        return RoundEngine(m3, fed, cfg, graph=graph)
+
+    def run(eng):
+        return run_federated_training(m3, eng.fed, cfg, lr, engine=eng)
+
+    h_eager = on_host(run(engine(False)))
+    graphed = engine(True)
+    if not same_run(on_host(run(graphed)), h_eager):
+        raise AssertionError("[phases] the graphed run differs from the "
+                             "eager run")
+    # one segment under the profiler, then a tail of small kernels: a long
+    # process's profile once lost its last device records (81 of 84 marks
+    # of a 20-round run after [sweep]), so the marks stay clear of the end
+    seg = dataclasses.replace(cfg, rounds=cfg.eval_every)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run_federated_training(m3, graphed.fed, seg, lr, engine=graphed)
+        torch.cuda.synchronize()
+        tail = torch.zeros(1, device="cuda")
+        for _ in range(PHASE_TAIL):
+            tail.add_(1)
+        torch.cuda.synchronize()
+    seen = phase_marks_seen(prof)
+    round_ = list(telemetry.PHASES[:4])
+    want = round_ * seg.rounds + list(telemetry.PHASES[4:])
+    if seen != want:
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        raise AssertionError(f"[phases] marks on the card {seen}, expected "
+                             f"{want}; {n} device events in the profile, "
+                             f"{PHASE_TAIL} of them the tail's at most")
+    del graphed
+    log(f"[phases] graphed mlp3 N = {n}, a {seg.rounds}-round segment "
+        f"profiled: {len(seen)} fl_phase_* kernels in PHASES order, "
+        f"{len(round_)} a round from the replayed graph and 2 at its eval; "
+        f"graphed == eager over {cfg.rounds} rounds, bitwise [{card}]")
+    log(f"[phases] done ({time.perf_counter() - t0:.1f} s)")
+
+
 def zoo_fl_cfg(n_clients=2, rounds=2, **kw):
     """model_fl_bench.py's run: streaming diversefl in blocks of one
     client, f32 codec, l2 = 0, f = 1 under sign_flip, eval at the end."""
@@ -5085,6 +5169,7 @@ def main():
     h_int, async_kw = phase_async(card)
     phase_telemetry(card, h_int, async_kw)
     phase_sweep(card)
+    phase_phases(card)
     phase_card_vs_cpu_s2()
     phase_card_vs_cpu_s3()
     # slice 4's main path: the timed prefills of [serve]

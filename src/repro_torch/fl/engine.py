@@ -11,6 +11,12 @@ into (rounds,) buffers, and the caller fetches them all with one
 ``simulator.host_sync``.  The engine's history and params equal the
 per-round loop's bit for bit.
 
+Each eval point enters the ``eval`` and ``handoff`` phases
+(``fl/telemetry.phase``) after the rounds' own four.  While
+``torch.profiler`` records, the host ranges ``fl.run_training`` (each
+:meth:`RoundEngine.run_training`) and ``fl.replay`` (each graph replay)
+name the host's work.
+
 ``graph=True`` (off by default) captures one round in a
 ``torch.cuda.CUDAGraph``: the carry, the error-feedback residuals, the
 async slab, the learning-rate vector with a device round counter, the
@@ -18,10 +24,11 @@ scenario operands and the telemetry buffers are static tensors, and the
 run's generator is registered with the graph, so each replay draws the
 numbers an eager round would.  A run copies its carry, scenario, lrs and
 generator state into the static tensors and replays the graph once per
-round; eval points run eagerly on the static carry between replays.  One
-capture serves every run of the engine whose shapes match (a sweep's
-structural group).  The graph needs a CUDA device, and a capture that
-fails raises: nothing falls back to eager rounds.
+round; eval points run eagerly on the static carry between replays.
+The round's phase marks are nodes of the graph.  One capture serves
+every run of the engine whose shapes match (a sweep's structural group).
+The graph needs a CUDA device, and a capture that fails raises: nothing
+falls back to eager rounds.
 
 ``mesh=`` (default: the active ``sharding.get_mesh()``) runs the same
 rounds on a client x model ``DeviceMesh`` (``sharding/api.py``): each data
@@ -403,7 +410,7 @@ class RoundEngine:
         On a mesh every rank calls it and gets the same full params and
         metrics: on a model axis > 1 the tiles are gathered once, at the
         end."""
-        with use_mesh(self.mesh):
+        with use_mesh(self.mesh), telemetry.profiled("fl.run_training"):
             params, generator, metrics, rounds = self._run_training(
                 carry, generator, lrs, scen, draws, self.model_shards)
         return self.whole_params(params), generator, metrics, rounds
@@ -435,12 +442,23 @@ class RoundEngine:
                                               scen, draws, i, batch)
                     if self._tel_fn is not None:
                         tbufs.put(i, self._tel_fn(logs))
-                bufs.put(e, self._eval_fn(self.carry_params(carry), logs))
+                self._evaluate(bufs, e, self.carry_params(carry), logs)
             params, metrics, tel = self.carry_params(carry), bufs.buf, \
                 tbufs.buf
         if self.telemetry and tel:
             metrics = dict(metrics, _tel=tel)
         return params, generator, metrics, eval_rounds
+
+    def _evaluate(self, bufs, e, params, logs):
+        """Eval point ``e`` into ``bufs``: the ``eval`` phase, then the
+        ``handoff`` phase from the copy into the run's buffers on.  The
+        device's time from that mark to the next round's first mark is the
+        segment edge's: the copies out, the host sync, the next segment's
+        copies in, its generator state and its learning rates."""
+        with telemetry.phase("eval", self.device):
+            values = self._eval_fn(params, logs)
+        with telemetry.phase("handoff", self.device):
+            bufs.put(e, values)
 
     # --- the sweep axis -------------------------------------------------
     def run_training_sweep(self, cells):
@@ -547,10 +565,11 @@ class RoundEngine:
         bufs = _Buffers(n_evals)
         for e, (start, n) in enumerate(self._segments(R)):
             for _ in range(n):
-                g["graph"].replay()
+                with telemetry.profiled("fl.replay"):
+                    g["graph"].replay()
                 self.replays += 1
-            bufs.put(e, self._eval_fn(self.carry_params(g["carry"]),
-                                      g["logs"]))
+            self._evaluate(bufs, e, self.carry_params(g["carry"]),
+                           g["logs"])
         generator.set_state(g["gen"].get_state())
         params = {k: v.clone()
                   for k, v in self.carry_params(g["carry"]).items()}

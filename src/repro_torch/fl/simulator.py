@@ -509,6 +509,17 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     dispatches without waiting on the card and one round can be captured
     in a CUDA graph.
 
+    The round enters the phases of ``telemetry.PHASES`` in order
+    (``telemetry.phase``: a mark in the device's stream, a host range
+    under the profiler): ``local_sgd`` first (the selection, the
+    minibatch gather, the data attacks and, dense, Step 2's local SGD),
+    then on the dense path ``update_rows`` (flattening, update attacks,
+    the codec and the residual write), ``guides`` (the guides, FLTrust's
+    root update) and ``aggregate`` (Steps 4-5 through the param apply).
+    A streaming round enters the four once per fold block (the root
+    update, ``guides``, before the first; the block's fold follows its
+    ``aggregate`` mark), and the landed stragglers' guides as ``guides``.
+
     The body exposes ``streaming`` (the rule streams), ``streaming_fallback``
     (why it does not, when streaming was asked for), ``lossy``, ``codec``,
     ``async_mode`` and ``client_rows``."""
@@ -593,6 +604,13 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 keep.append(z[a - b0:e - b0])
         return torch.cat(keep)
 
+    def apply_delta(params, step):
+        """The fp32 delta, one rounding to each param's dtype (the
+        identity for fp32 params), as the reference's
+        ``(p - d).astype(p.dtype)``."""
+        return {k: (params[k] - step[k]).to(params[k].dtype)
+                for k in params}
+
     def client_rows():
         """``(lo, hi)``: the rows of the round's C clients this rank
         computes when the round splits over the active mesh's data ranks
@@ -610,84 +628,97 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     def body(carry, lr, generator=None, *, batch_idx=None, sel=None,
              noise=None, resample_ids=None, fault_rows=None,
              slab_noise=None, scen=None, batch=None, like=None):
-        astate = resid = None
-        if lossy:
-            params, resid = carry
-        elif async_mode:
-            params, astate = carry
-        else:
-            params = carry
-        if scen is None:
-            scen = default_scen
-        split = client_rows()
-        # a batch of fewer than N rows holds this rank's rows of a split
-        # round of all N clients
-        rank_batch = batch is not None and batch[1].shape[0] != N
-        if batch is None:
-            idx = fed.data.minibatch_idx(E * m, generator, idx=batch_idx)
-        elif rank_batch and (split is None or sel is not None or C < N
-                             or batch[1].shape[0] != split[1] - split[0]):
-            raise ValueError(
-                f"batch holds {batch[1].shape[0]} of the {N} clients' rows, "
-                f"but this rank computes rows {split} of the round's {C} "
-                f"selected clients{'' if sel is None else ' (sel given)'}: "
-                f"rank-row stacks need the round's own split of all N "
-                f"clients")
-        # Step 2 preamble: the server selects the participating subset S^i
-        if sel is None:
-            sel = torch.randperm(N, generator=generator, device=dev)[:C] \
-                if C < N else torch.arange(N, device=dev)
-        sel = sel.to(dev)
-        byz = scen["byz"][sel]
-        # the selected clients this rank computes: all of them, or its
-        # rows of a split round
-        rsel, rbyz, rnoise = sel, byz, noise
-        if split is not None:
-            lo, hi = split
-            rsel, rbyz = sel[lo:hi], byz[lo:hi]
-            rnoise = None if noise is None else noise[lo:hi]
-        if batch is None:
-            xb, yb = fed.data.client_minibatch(idx, rsel)
-        elif rank_batch:
-            xb, yb = batch
-        else:
-            xb, yb = batch[0][rsel], batch[1][rsel]
-        n_r = int(rsel.shape[0])
-        xb = xb.reshape((n_r, E, m) + tuple(xb.shape[2:]))
-        yb = yb.reshape(n_r, E, m)
-
-        live = strag = None
-        if async_mode:
-            # participation is 1 here, so sel is arange(N): rows are ids
-            if "cohort" in scen:
-                m_r = scen["cohort"].index_select(0, astate["r"].view(1))[0]
+        with telemetry.phase("local_sgd", dev):
+            astate = resid = None
+            if lossy:
+                params, resid = carry
+            elif async_mode:
+                params, astate = carry
             else:
-                m_r = torch.ones((N,), dtype=torch.bool, device=dev)
-            if fault_rows is None:
-                fault_rows = draw_faults(N, fcfg, generator, dev)
-            fault_rows = fault_rows.to(dev)
-            # a dropped or late update never arrives this round: weight 0
-            # through the fold's ``live`` channel
-            live = m_r & ~fault_rows \
-                if fcfg.kind in ("dropout", "straggler") else m_r
-            if straggler:
-                strag = m_r & fault_rows
+                params = carry
+            if scen is None:
+                scen = default_scen
+            split = client_rows()
+            # a batch of fewer than N rows holds this rank's rows of a split
+            # round of all N clients
+            rank_batch = batch is not None and batch[1].shape[0] != N
+            if batch is None:
+                idx = fed.data.minibatch_idx(E * m, generator, idx=batch_idx)
+            elif rank_batch and (split is None or sel is not None or C < N
+                                 or batch[1].shape[0] != split[1] - split[0]):
+                raise ValueError(
+                    f"batch holds {batch[1].shape[0]} of the {N} clients' "
+                    f"rows, but this rank computes rows {split} of the "
+                    f"round's {C} selected clients"
+                    f"{'' if sel is None else ' (sel given)'}: rank-row "
+                    f"stacks need the round's own split of all N clients")
+            # Step 2 preamble: the server selects the participating subset S^i
+            if sel is None:
+                sel = torch.randperm(N, generator=generator, device=dev)[:C] \
+                    if C < N else torch.arange(N, device=dev)
+            sel = sel.to(dev)
+            byz = scen["byz"][sel]
+            # the selected clients this rank computes: all of them, or its
+            # rows of a split round
+            rsel, rbyz, rnoise = sel, byz, noise
+            if split is not None:
+                lo, hi = split
+                rsel, rbyz = sel[lo:hi], byz[lo:hi]
+                rnoise = None if noise is None else noise[lo:hi]
+            if batch is None:
+                xb, yb = fed.data.client_minibatch(idx, rsel)
+            elif rank_batch:
+                xb, yb = batch
+            else:
+                xb, yb = batch[0][rsel], batch[1][rsel]
+            n_r = int(rsel.shape[0])
+            xb = xb.reshape((n_r, E, m) + tuple(xb.shape[2:]))
+            yb = yb.reshape(n_r, E, m)
 
-        # ---- data-level attacks ----
-        if acfg.kind == "label_flip":
-            yb = torch.where(rbyz[:, None, None], flip_labels(yb, n_classes),
-                             yb)
-        elif acfg.kind == "backdoor":
-            xp, yp = poison_backdoor(
-                xb.reshape((n_r, E * m) + tuple(xb.shape[3:])),
-                yb.reshape(n_r, E * m), acfg)
-            bsel = rbyz.reshape((-1,) + (1,) * (xb.dim() - 1))
-            xb = torch.where(bsel, xp.reshape(xb.shape), xb)
-            yb = torch.where(rbyz[:, None, None], yp.reshape(yb.shape), yb)
-        logs = {"byz": byz, "sel": sel}
-        root = fed.server.compute_root_update(
-            params, grad_fn, lr, E, fed.root_x, fed.root_y) \
-            if entry.needs_root else None
+            live = strag = None
+            if async_mode:
+                # participation is 1 here, so sel is arange(N): rows are ids
+                if "cohort" in scen:
+                    m_r = scen["cohort"].index_select(
+                        0, astate["r"].view(1))[0]
+                else:
+                    m_r = torch.ones((N,), dtype=torch.bool, device=dev)
+                if fault_rows is None:
+                    fault_rows = draw_faults(N, fcfg, generator, dev)
+                fault_rows = fault_rows.to(dev)
+                # a dropped or late update never arrives this round: weight 0
+                # through the fold's ``live`` channel
+                live = m_r & ~fault_rows \
+                    if fcfg.kind in ("dropout", "straggler") else m_r
+                if straggler:
+                    strag = m_r & fault_rows
+
+            # ---- data-level attacks ----
+            if acfg.kind == "label_flip":
+                yb = torch.where(rbyz[:, None, None],
+                                 flip_labels(yb, n_classes), yb)
+            elif acfg.kind == "backdoor":
+                xp, yp = poison_backdoor(
+                    xb.reshape((n_r, E * m) + tuple(xb.shape[3:])),
+                    yb.reshape(n_r, E * m), acfg)
+                bsel = rbyz.reshape((-1,) + (1,) * (xb.dim() - 1))
+                xb = torch.where(bsel, xp.reshape(xb.shape), xb)
+                yb = torch.where(rbyz[:, None, None], yp.reshape(yb.shape), yb)
+            logs = {"byz": byz, "sel": sel}
+            if stream_entry is None:
+                # ---- Step 2: local SGD, client_chunk clients at a time ----
+                updates = chunked_vmap(
+                    lambda xs, ys: client_update(params, xs, ys, lr),
+                    (xb, yb), chunk)
+
+        def root_update():
+            """FLTrust's root update, the server's reference update: in
+            the guides phase."""
+            if not entry.needs_root:
+                return None
+            with telemetry.phase("guides", dev):
+                return fed.server.compute_root_update(
+                    params, grad_fn, lr, E, fed.root_x, fed.root_y)
 
         if stream_entry is not None:
             # ---- Steps 2-5, streaming: fold blocks into an O(D) state ----
@@ -706,6 +737,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
             srow = model_index()
             D = layout.D if layout is not None \
                 else sum(v.numel() for v in params.values())
+            root = root_update()
             if layout is not None and root is not None:
                 root = layout.local_rows(root.unsqueeze(0), srow)[0]
             ctx = AggregationContext(
@@ -737,40 +769,48 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                     xs, ys, byz_b, sel_b, noise_b, live_b, fault_b = blk
                 else:
                     xs, ys, byz_b, sel_b, noise_b = blk
-                U_blk, _ = flatten_updates(client_update(params, xs, ys, lr))
-                if update_attack:
-                    if gaussian and noise_b is None:
-                        noise_b = draw_noise(generator, U_blk.shape[0], D)
-                    if gaussian and layout is not None:
-                        # drawn at D, as the meshless round draws it
-                        noise_b = layout.local_cut(noise_b, srow)
-                    U_blk = apply_update_attacks(U_blk, byz_b, noise_b, scen)
-                if async_mode and fcfg.kind == "intermittent":
-                    # a malfunction at the client boundary, after the
-                    # attack: it hits whatever the client transmits
-                    U_blk = corrupt_updates(U_blk, fault_b, fcfg)
-                if layout is not None:
-                    U_blk = layout.local_rows(U_blk, srow)
-                ctx_blk = {"byz": byz_b}
-                if async_mode:
-                    ctx_blk["live"] = live_b
+                with telemetry.phase("local_sgd", dev):
+                    upd = client_update(params, xs, ys, lr)
+                with telemetry.phase("update_rows", dev):
+                    U_blk, _ = flatten_updates(upd)
+                    if update_attack:
+                        if gaussian and noise_b is None:
+                            noise_b = draw_noise(generator, U_blk.shape[0], D)
+                        if gaussian and layout is not None:
+                            # drawn at D, as the meshless round draws it
+                            noise_b = layout.local_cut(noise_b, srow)
+                        U_blk = apply_update_attacks(U_blk, byz_b, noise_b,
+                                                     scen)
+                    if async_mode and fcfg.kind == "intermittent":
+                        # a malfunction at the client boundary, after the
+                        # attack: it hits whatever the client transmits
+                        U_blk = corrupt_updates(U_blk, fault_b, fcfg)
+                    if layout is not None:
+                        U_blk = layout.local_rows(U_blk, srow)
+                    ctx_blk = {"byz": byz_b}
+                    if async_mode:
+                        ctx_blk["live"] = live_b
+                    if lossy:
+                        # the client boundary: only the encoded dict
+                        # enters the fold; the new residual rows ride out
+                        # beside it.  On a model axis > 1 the row, the
+                        # residual and the int8 groups are the rank's
+                        # (c, L) columns (QBLOCK | L is validated); the
+                        # guides are quantised per tensor before the cut,
+                        # so their layout does not matter
+                        enc, _, new_resid = encode_with_feedback(
+                            codec, U_blk, resid[sel_b])
                 if entry.needs_guides:
-                    G_blk = fed.server.compute_guides(
-                        params, grad_fn, lr, E, select=sel_b, codec=wire,
-                        like=like)
-                    ctx_blk["guide"] = G_blk if layout is None \
-                        else layout.local_rows(G_blk, srow)
-                if lossy:
-                    # the client boundary: only the encoded dict enters
-                    # the fold; the new residual rows ride out beside it.
-                    # On a model axis > 1 the row, the residual and the
-                    # int8 groups are the rank's (c, L) columns (QBLOCK | L
-                    # is validated); the guides were quantised per tensor
-                    # before the cut, so their layout does not matter
-                    enc, _, new_resid = encode_with_feedback(
-                        codec, U_blk, resid[sel_b])
-                    return enc, ctx_blk, new_resid
-                return U_blk, ctx_blk
+                    with telemetry.phase("guides", dev):
+                        G_blk = fed.server.compute_guides(
+                            params, grad_fn, lr, E, select=sel_b,
+                            codec=wire, like=like)
+                        ctx_blk["guide"] = G_blk if layout is None \
+                            else layout.local_rows(G_blk, srow)
+                # the fold of the block follows in stream_aggregate
+                with telemetry.phase("aggregate", dev):
+                    return (enc, ctx_blk, new_resid) if lossy \
+                        else (U_blk, ctx_blk)
 
             # ---- bounded staleness: the buffered updates that land now
             # fold through the same monoid, with guides recomputed at the
@@ -784,10 +824,11 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                             # the discount rides the 0/1 valid channel
                             "valid": landed.to(torch.float32) * discount_w}
                 if entry.needs_guides:
-                    G_land = fed.server.compute_guides(
-                        params, grad_fn, lr, E, select=land_cid)
-                    land_ctx["guide"] = G_land if layout is None \
-                        else layout.local_rows(G_land, srow)
+                    with telemetry.phase("guides", dev):
+                        G_land = fed.server.compute_guides(
+                            params, grad_fn, lr, E, select=land_cid)
+                        land_ctx["guide"] = G_land if layout is None \
+                            else layout.local_rows(G_land, srow)
                 extra_state, stale_logs = rule.update_block(
                     rule.init(d, dev), astate["u"], land_ctx)
 
@@ -808,52 +849,54 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 astate = refill_buffer(params, astate, xb, yb, lr, scen,
                                        strag, landed, generator, slab_noise,
                                        D, logs, layout, srow)
+            new_params = apply_delta(params, unravel(delta))
         else:
-            # ---- Step 2: local SGD, client_chunk clients at a time ----
-            updates = chunked_vmap(
-                lambda xs, ys: client_update(params, xs, ys, lr), (xb, yb),
-                chunk)
-            U, unravel = flatten_updates(updates)
+            with telemetry.phase("update_rows", dev):
+                U, unravel = flatten_updates(updates)
 
-            # ---- update-level attacks ----
-            if update_attack:
-                if gaussian and rnoise is None:
-                    rnoise = draw_noise_rows(generator, U.shape[1], split)
-                U = apply_update_attacks(U, rbyz, rnoise, scen)
-            if lossy:
-                # the registry rules receive the decoded updates: the bits
-                # the server recovers from the wire
-                _, U, new_resid = encode_with_feedback(codec, U, resid[rsel])
-                if split is not None:
-                    new_resid = gather_clients(new_resid)
-                resid.index_copy_(0, sel, new_resid)
+                # ---- update-level attacks ----
+                if update_attack:
+                    if gaussian and rnoise is None:
+                        rnoise = draw_noise_rows(generator, U.shape[1], split)
+                    U = apply_update_attacks(U, rbyz, rnoise, scen)
+                if lossy:
+                    # the registry rules receive the decoded updates: the
+                    # bits the server recovers from the wire
+                    _, U, new_resid = encode_with_feedback(codec, U,
+                                                           resid[rsel])
+                    if split is not None:
+                        new_resid = gather_clients(new_resid)
+                    resid.index_copy_(0, sel, new_resid)
 
             # ---- Steps 3-5: SecureServer (guides / root -> registry) ----
-            G = fed.server.compute_guides(
-                params, grad_fn, lr, E, select=rsel, client_chunk=chunk,
-                codec=wire) if entry.needs_guides else None
-            stats = None
-            if split is not None:
-                # a row's statistics depend on that row alone: the rank
-                # computes its rows' and only the (C, 3) statistics cross
-                # the ranks, never the guides.  The update rows are
-                # gathered in client order: the rules see the one-process
-                # matrix
-                if G is not None:
-                    stats = gather_clients(kops.similarity_stats(U, G))
-                    G = None
-                U = gather_clients(U)
-            ctx = AggregationContext(
-                f=cfg.f, dfl=cfg.dfl, byz_mask=byz, guides=G, stats=stats,
-                root_update=root, resample_s=cfg.resample_s,
-                generator=generator, resample_ids=resample_ids)
-            delta, agg_logs = fed.server.aggregate(cfg.aggregator, U, ctx)
+            G = None
+            if entry.needs_guides:
+                with telemetry.phase("guides", dev):
+                    G = fed.server.compute_guides(
+                        params, grad_fn, lr, E, select=rsel,
+                        client_chunk=chunk, codec=wire)
+            root = root_update()
+            with telemetry.phase("aggregate", dev):
+                stats = None
+                if split is not None:
+                    # a row's statistics depend on that row alone: the
+                    # rank computes its rows' and only the (C, 3)
+                    # statistics cross the ranks, never the guides.  The
+                    # update rows are gathered in client order: the rules
+                    # see the one-process matrix
+                    if G is not None:
+                        stats = gather_clients(kops.similarity_stats(U, G))
+                        G = None
+                    U = gather_clients(U)
+                ctx = AggregationContext(
+                    f=cfg.f, dfl=cfg.dfl, byz_mask=byz, guides=G,
+                    stats=stats, root_update=root,
+                    resample_s=cfg.resample_s, generator=generator,
+                    resample_ids=resample_ids)
+                delta, agg_logs = fed.server.aggregate(cfg.aggregator, U,
+                                                       ctx)
+                new_params = apply_delta(params, unravel(delta))
         logs.update(agg_logs)
-        step = unravel(delta)
-        # fp32 delta, one rounding to each param's dtype (the identity
-        # for fp32 params), as the reference's (p - d).astype(p.dtype)
-        new_params = {k: (params[k] - step[k]).to(params[k].dtype)
-                      for k in params}
         if lossy:
             return (new_params, resid), logs
         if async_mode:
@@ -963,9 +1006,10 @@ def host_sync(tree):
     which this function alone lifts while it reads.
 
     Every CUDA leaf is copied into pinned host memory without blocking,
-    then the stream is synchronised once.  With the flight recorder on,
-    each call records a ``sync`` event with the bytes moved and the
-    fetch's wall time."""
+    then the stream is synchronised once (inside the host range
+    ``fl.host_sync`` while ``torch.profiler`` records).  With the flight
+    recorder on, each call records a ``sync`` event with the bytes moved
+    and the fetch's wall time."""
     rec = telemetry.get_recorder()
     leaves = [x for x in tree_leaves(tree) if torch.is_tensor(x)]
     t0 = rec.now() if rec.enabled else 0.0
@@ -975,11 +1019,12 @@ def host_sync(tree):
         torch.cuda.set_sync_debug_mode(0)
         try:
             staged = {}
-            for x in cuda:
-                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                h.copy_(x, non_blocking=True)
-                staged[id(x)] = h
-            torch.cuda.current_stream(cuda[0].device).synchronize()
+            with telemetry.profiled("fl.host_sync"):
+                for x in cuda:
+                    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                    h.copy_(x, non_blocking=True)
+                    staged[id(x)] = h
+                torch.cuda.current_stream(cuda[0].device).synchronize()
         finally:
             torch.cuda.set_sync_debug_mode(mode)
         tree = tree_map(lambda x: staged.get(id(x), x)
@@ -1132,8 +1177,11 @@ def run_federated_training(model: SmallModel, fed: Federation, cfg: FLConfig,
                     carry, logs = engine.run_segment(carry, generator,
                                                      lrs[i:i + n], scen)
                     i += n
-                    _record_eval(history, i, host_sync(engine.eval_metrics(
-                        engine.carry_params(carry), logs)), log_every)
+                    with telemetry.phase("eval", dev):
+                        m = engine.eval_metrics(engine.carry_params(carry),
+                                                logs)
+                    with telemetry.phase("handoff", dev):
+                        _record_eval(history, i, host_sync(m), log_every)
                 params = engine.whole_params(engine.carry_params(carry))
             streaming_fallback = engine.streaming_fallback
         else:
@@ -1153,8 +1201,10 @@ def run_federated_training(model: SmallModel, fed: Federation, cfg: FLConfig,
                 params = carry[0] if body.lossy or body.async_mode \
                     else carry
                 if i % cfg.eval_every == 0 or i == cfg.rounds:
-                    _record_eval(history, i, host_sync(eval_fn(params, logs)),
-                                 log_every)
+                    with telemetry.phase("eval", dev):
+                        m = eval_fn(params, logs)
+                    with telemetry.phase("handoff", dev):
+                        _record_eval(history, i, host_sync(m), log_every)
             streaming_fallback = body.streaming_fallback
     history["final_acc"] = history["acc"][-1] if history["acc"] \
         else float("nan")

@@ -5,6 +5,14 @@ enclave's audit log, in PyTorch.
     ``span("dispatch")`` / ``event(...)`` emit structured records
     (monotonic time, kind, static metadata).  Recording is off by
     default, and every instrumented site is one ``enabled`` check.
+    While ``torch.profiler`` records, a span also opens a
+    ``record_function`` range of its name.
+  * **Phase marks**: ``with phase("guides", device):`` names the round's
+    phases (:data:`PHASES`) in the device's own stream, one empty kernel
+    a phase entry (``kernels/csrc/phase_mark.cu``) while profiled or
+    captured in a CUDA graph, so a trace splits even a replayed graph's
+    round by phase; under the profiler it also opens the host range
+    ``fl.<phase>``.
   * **On-device round telemetry**: :func:`make_round_telemetry_fn`
     builds the per-round block (C1/C2 pass counts, tag popcounts,
     update/guide norm summaries, async cohort and staleness counts), a
@@ -29,6 +37,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..kernels.phase_mark import phase_mark_cuda
+
 SCHEMA_VERSION = 1
 
 # The hash chain's genesis digest: the first entry commits to this.
@@ -39,13 +49,26 @@ GENESIS = "0" * 64
 # Recorder: spans and events
 # ----------------------------------------------------------------------
 
+_NULL = contextlib.nullcontext()
+
+
+def profiled(name: str):
+    """``record_function(name)`` while ``torch.profiler`` records, else a
+    no-op context: a host range the trace shows, at the cost of one check
+    when nothing records."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL
+
+
 class Recorder:
     """Process-wide flight recorder.  An **event** is a point in time,
     ``{"type": "event", "kind", "t", **meta}``; a **span** an interval,
     ``{"type": "span", "name", "t0", "t1", "dur", "depth", **meta}``,
     ``depth`` its nesting level at entry.  Times are seconds since
     :meth:`start` on the monotonic clock; the wall-clock time of t = 0 is
-    kept once in :attr:`wall0`."""
+    kept once in :attr:`wall0`.  While the profiler records, a span also
+    opens a ``record_function`` range of its name."""
 
     def __init__(self):
         self.enabled = False
@@ -83,7 +106,8 @@ class Recorder:
                "depth": self._depth, **meta}
         self._depth += 1
         try:
-            yield
+            with profiled(name):
+                yield
         finally:
             self._depth -= 1
             rec["t1"] = round(self.now(), 6)
@@ -124,6 +148,52 @@ def span(name: str, **meta):
     """One span on the process recorder (nothing when disabled)."""
     return _RECORDER.span(name, **meta)
 
+
+# ----------------------------------------------------------------------
+# Phase marks: the round's phases in the device's own stream
+# ----------------------------------------------------------------------
+
+# The cycle of a federated run, in order: a round's four phases (Step 2's
+# local SGD with the selection, the minibatch gather and the data
+# attacks; the update rows: update attacks, codec, residual write; the
+# guides, and FLTrust's root update; the aggregation through the param
+# apply), then at each eval point the eval and the hand-off to the host
+# and the next segment.  A streaming round repeats the four per block.
+PHASES = ("local_sgd", "update_rows", "guides", "aggregate", "eval",
+          "handoff")
+_PHASE_INDEX = {p: i for i, p in enumerate(PHASES)}
+
+
+def phase(name: str, device=None):
+    """``with phase(name, device):`` enters phase ``name`` of
+    :data:`PHASES`.  While the profiler records, it opens the host range
+    ``fl.<name>`` for the body.  On a CUDA ``device`` it launches the
+    phase's mark, the kernel ``fl_phase_<name>``, on the current stream
+    where a trace can see it: while the profiler records (inside that
+    range), and while that stream captures a CUDA graph, which keeps the
+    mark as a node of every replay.  An eager round that nothing profiles
+    launches none.  A mark marks the entry only: on the device's timeline
+    a phase lasts from its mark to the next, idle time included."""
+    index = _PHASE_INDEX.get(name)
+    if index is None:
+        raise ValueError(f"unknown phase {name!r}; the phases are {PHASES}")
+    if torch.autograd._profiler_enabled():
+        return _traced_phase(name, index, device)
+    if _on_card(device) and torch.cuda.is_current_stream_capturing():
+        phase_mark_cuda(index, device)
+    return _NULL
+
+
+def _on_card(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
+@contextlib.contextmanager
+def _traced_phase(name, index, device):
+    with torch.profiler.record_function(f"fl.{name}"):
+        if _on_card(device):
+            phase_mark_cuda(index, device)
+        yield
 
 @contextlib.contextmanager
 def recording(path: Optional[str] = None, audit: Optional["AuditLog"] = None,
