@@ -33,6 +33,17 @@ Phases (any failure raises and the script exits non-zero):
                timed likewise, the median kernel at (23, 199210) and
                VGG-11's width beside the pre-redesign kernel, against a
                byte bound
+     [client_step], after [kernels-s4]: the client step's kernel
+               (csrc/client_step.cu) bitwise its plain version at the
+               3-NN's (64, 199210) fp32 block, θp shared and per client,
+               at one bf16 row of fl-llm-100m's 100,369,280 params and
+               at 9 bf16 rows of 40 odd-width leaves (two launches), into
+               rows 2 .. of a larger matrix;
+               timed cold and warm beside its byte bound; the shared-θp
+               fp32 block within 2x of it.  It is in ops.KERNELS: every
+               run's exact launch counts below hold its launches too (one
+               a client block for the update rows, one for the guides',
+               one for FLTrust's root update)
   4. train   - slice 1: the paper's configuration (softmax regression, 23
                clients, f = 5, 60 rounds): diversefl/oracle under sign_flip
                and diversefl/mean under gaussian, with the reference's
@@ -244,7 +255,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import configs, models, sharding  # noqa: E402
-from repro_torch.convert import tree_from_jax, tree_to_numpy  # noqa: E402
+from repro_torch.convert import (flatten_tree, tree_from_jax,  # noqa: E402
+                                 tree_to_numpy)
 from repro_torch.core.attacks import (AttackConfig,  # noqa: E402
                                       make_byzantine_mask)
 from repro_torch.core.diversefl import (guiding_update,  # noqa: E402
@@ -271,6 +283,9 @@ from repro_torch.fl.zoo import (make_zoo_data,  # noqa: E402
 from repro_torch.fl.server import (AggregationContext,  # noqa: E402
                                    aggregate)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.client_step import (  # noqa: E402
+    MAX_LEAVES as CLIENT_STEP_MAX_LEAVES, client_step_rows_cuda,
+    client_step_rows_plain)
 from repro_torch.kernels.dequant_fold import (  # noqa: E402
     dequant_fold_update_cuda, dequant_fold_update_percolumn_cuda,
     dequant_fold_update_plain, dequant_int8)
@@ -334,6 +349,9 @@ KERNEL_META = {
     "mamba_scan": {
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:46"},
+    "client_step_rows": {     # port-only: the reference leaves it to XLA
+        "source": "src/repro_torch/kernels/csrc/client_step.cu",
+        "replaces": None},
 }
 S2_SHAPE = (23, D_MLP3)          # the weighted fold's shape in Fig. 4
 ROBUST_SHAPES = [(23, 7850), S2_SHAPE, (24, 7850), (64, 7850), (23, D_VGG11)]
@@ -1022,9 +1040,27 @@ def phase_kernels_s2(card):
 # slice 2: the paper's baselines and neural-network models
 # ----------------------------------------------------------------------
 
-def expected_counts(aggregator, rounds):
-    """Kernel launches a run of ``rounds`` rounds must show."""
+def step_calls(aggregator, blocks):
+    """Client-step launches a round of ``blocks`` client blocks makes
+    (leaves fit one launch): one a block for the update rows and, for
+    diversefl, one for the guide rows; one for FLTrust's root update."""
+    return blocks * (1 + (aggregator == "diversefl")) + \
+        (aggregator == "fltrust")
+
+
+def dense_blocks(cfg, rows=None):
+    """The client blocks of a dense round of ``cfg``: its ``rows``
+    selected clients (default all of them) in blocks of ``client_chunk``."""
+    n = cfg.n_selected if rows is None else rows
+    return 1 if cfg.client_chunk is None or cfg.client_chunk >= n \
+        else -(-n // cfg.client_chunk)
+
+
+def expected_counts(aggregator, rounds, blocks=1):
+    """Kernel launches a run of ``rounds`` dense rounds of ``blocks``
+    client blocks must show."""
     c = dict.fromkeys(ops.KERNELS, 0)
+    c["client_step_rows"] = rounds * step_calls(aggregator, blocks)
     if aggregator == "diversefl":
         c["similarity_stats"] = c["masked_aggregate"] = rounds
     elif aggregator in ("oracle", "mean"):
@@ -1056,7 +1092,8 @@ def fl_run(model, data, tx, ty, aggregator, attack, rounds, lr0=0.05,
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / rounds
     counts = ops.launch_counts()
-    want = expected_counts(aggregator, rounds) if expect is None else expect
+    want = expected_counts(aggregator, rounds, dense_blocks(cfg)) \
+        if expect is None else expect
     if counts != want:
         raise AssertionError(f"{tag} {aggregator} {cfg_kw}: launches "
                              f"{counts}, expected {want}")
@@ -1235,8 +1272,11 @@ def phase_card_vs_cpu_s2():
 def stream_counts(aggregator, codec, rounds, blocks):
     """Kernel launches of a streaming run: one fold per block (the
     dequantize-and-fold kernel under int8, the weighted fold otherwise)
-    and, for diversefl, one similarity pass per block."""
+    and, for diversefl, one similarity pass per block; the client step's
+    launches (:func:`step_calls`).  The straggler slab counts as a
+    block."""
     c = dict.fromkeys(ops.KERNELS, 0)
+    c["client_step_rows"] = rounds * step_calls(aggregator, blocks)
     fold = "dequant_fold_update" if codec == "int8" else "masked_agg_update"
     c[fold] = rounds * blocks
     if aggregator == "diversefl":
@@ -1426,6 +1466,131 @@ def phase_kernels_s3(card):
         "weighted fold agree with their plain versions at every shape")
     return {"dequant_fold_update": timed[("dequant_fold_update",)
                                          + S3_SHAPE]}
+
+
+# ----------------------------------------------------------------------
+# the client step's epilogue (kernels/csrc/client_step.cu): a port-only
+# kernel that writes each client's update row once
+# ----------------------------------------------------------------------
+
+def client_step_leaves(shapes, c, dtype, gen, per_client):
+    """Random leaves of the params' ``shapes``: (grads (c, ...), θ0 (c, ...)
+    zero-stride, θp (c, ...): θ0's zero-stride view, or per-client params
+    near it when ``per_client``)."""
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+    grads = [rnd((c,) + s) for s in shapes]
+    t0 = [rnd(s) for s in shapes]
+    if per_client:
+        tp = [(t.float() + 0.01 * torch.randn((c,) + s, generator=gen,
+                                               device=DEV)).to(dtype)
+              for t, s in zip(t0, shapes)]
+    else:
+        tp = [t.unsqueeze(0).expand((c,) + s) for t, s in zip(t0, shapes)]
+    t0 = [t.unsqueeze(0).expand((c,) + s) for t, s in zip(t0, shapes)]
+    return grads, t0, tp
+
+
+def phase_client_step(card):
+    """The client step's kernel against its plain version on the card, at
+    the 3-NN's block of 64 clients (fp32, θp shared and per client, an
+    8-byte-aligned row start, w1 at column 410), one bf16 row of
+    fl-llm-100m's 100,369,280 params and 9 bf16 rows of 40 odd-width
+    leaves (two launches), bitwise; the first three timed cold and warm
+    beside their byte bounds.  The fp32 block with shared θp must come
+    within 2x of its bound.  -> that block's timing row."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(1357)
+    mlp = {k: tuple(v.shape) for k, v in
+           mlp3().init(torch.Generator(device=DEV).manual_seed(0),
+                       DEV).items()}
+    zoo = {k: tuple(v.shape) for k, v in flatten_tree(
+        models.init(None, FL_LLM_100M, "meta")).items()}
+    # 40 leaves of odd widths: two launches, leaf starts at every
+    # alignment
+    many = {f"l{i:02d}": (1 + 97 * i,) for i in range(40)}
+    cases = [("mlp3 fp32, shared θp", mlp, 64, torch.float32, False),
+             ("mlp3 fp32, per-client θp", mlp, 64, torch.float32, True),
+             ("fl-llm-100m bf16 row", zoo, 1, torch.bfloat16, False),
+             ("40 leaves bf16, per-client θp", many, 9, torch.bfloat16,
+              True)]
+    lr = torch.tensor(0.05, device=DEV)
+    for tag, shapes, c, dtype, per_client in cases:
+        keys = sorted(shapes)
+        leaf_shapes = [shapes[k] for k in keys]
+        d = sum(math.prod(s) for s in leaf_shapes)
+        grads, th0, thp = client_step_leaves(leaf_shapes, c, dtype, gen,
+                                             per_client)
+        # a ragged row count and a row offset: the kernel writes rows
+        # row0 .. row0 + rows - 1 and nothing else
+        out = torch.full((c + 3, d), float("nan"), device=DEV)
+        rows = max(1, c - 5)
+        before = client_step_rows_cuda.launches
+        client_step_rows_cuda(out, grads, th0, thp, lr, 5e-4, 2, rows)
+        launched = client_step_rows_cuda.launches - before
+        want = torch.full_like(out, float("nan"))
+        client_step_rows_plain(want, grads, th0, thp, lr, 5e-4, 2, rows)
+        if not torch.equal(out[2:2 + rows], want[2:2 + rows]) or \
+                not out[:2].isnan().all() or \
+                not out[2 + rows:].isnan().all():
+            err = (out[2:2 + rows] - want[2:2 + rows]).abs().max().item()
+            raise AssertionError(f"[client_step] {tag}: the kernel's rows "
+                                 f"differ from the plain version's (max "
+                                 f"|err| {err:.3g}) or it wrote outside "
+                                 f"rows 2..{1 + rows}")
+        if launched != -(-len(keys) // CLIENT_STEP_MAX_LEAVES):
+            raise AssertionError(f"[client_step] {tag}: {launched} launches "
+                                 f"for {len(keys)} leaves")
+        if len(keys) > CLIENT_STEP_MAX_LEAVES:
+            log(f"[client_step] {tag} ({c}, {d}), {len(keys)} leaves, "
+                f"{launched} launches: bitwise the plain version")
+            continue
+        size = torch.finfo(dtype).bits // 8
+        nbytes = c * d * size + c * d * 4 + d * size + \
+            (c * d * size if per_client else 0)
+        bound = bound_ms(nbytes, 5 * c * d,
+                         BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                         else FP32_FLOPS_PER_S)
+        out = torch.empty((c, d), device=DEV)
+        k = len(keys)
+
+        def split(args):
+            """(out, k grads, k θ0 rows[, k θp]) -> the kernel's operands,
+            θ0 (and a shared θp) expanded to the c clients."""
+            o, g = args[0], list(args[1:1 + k])
+            a = [t.unsqueeze(0).expand((c,) + t.shape)
+                 for t in args[1 + k:1 + 2 * k]]
+            return o, g, a, list(args[1 + 2 * k:]) if per_client else a
+
+        def kern(*args):
+            o, g, a, p = split(args)
+            client_step_rows_cuda(o, g, a, p, lr, 5e-4)
+
+        def plain(*args):
+            o, g, a, p = split(args)
+            client_step_rows_plain(o, g, a, p, lr, 5e-4)
+        inputs = (out, *grads, *(t[0] for t in th0)) + \
+            (tuple(thp) if per_client else ())
+        iters, warm = (20, 3) if d > 10 * D_MLP3 else (200, 20)
+        r = time_kernel(card, f"client_step_rows {tag}", (c, d),
+                        (kern, plain, None), inputs, bound, 0.0, iters,
+                        warm)
+        if not per_client and dtype == torch.float32:
+            row = r
+        if not per_client and dtype == torch.float32 and \
+                r["ms"] > 2 * bound[0]:
+            raise AssertionError(f"[client_step] {tag}: {r['ms'] * 1e3:.2f}"
+                                 f" us cold, over 2x its bound "
+                                 f"{bound[0] * 1e3:.2f} us")
+        log(f"[client_step] {tag} ({c}, {d}), {k} leaves, {launched} "
+            f"launch(es): bitwise the plain version; {r['ms'] * 1e3:.2f} us "
+            f"cold / {r['warm_ms'] * 1e3:.2f} us warm, bound "
+            f"{bound[0] * 1e3:.2f} us ({100 * bound[0] / r['ms']:.1f} % of "
+            f"it) [{card}]")
+        del grads, th0, thp, out, want, inputs
+        torch.cuda.empty_cache()
+    log(f"[client_step] {time.perf_counter() - t0:.1f} s")
+    return {"client_step_rows": row}
 
 
 def on_host(h):
@@ -2932,7 +3097,8 @@ TRACED_FAMILIES = {"similarity_stats_kernel": ("similarity_stats",),
                    "masked_agg_kernel": ("masked_aggregate",
                                          "masked_agg_update"),
                    "dequant_fold": ("dequant_fold_update",),
-                   "robust_agg_kernel": ("robust_aggregate",)}
+                   "robust_agg_kernel": ("robust_aggregate",),
+                   "client_step_rows_kernel": ("client_step_rows",)}
 
 
 def read_trace(prof):
@@ -3136,7 +3302,7 @@ def phase_engine(card):
         lambda: Federation.create(soft, ndata, tx, ty, ncfg,
                                   torch.Generator(device="cuda")
                                   .manual_seed(100 + SEED)),
-        ncfg, expected_counts("diversefl", 10))
+        ncfg, expected_counts("diversefl", 10, dense_blocks(ncfg)))
     log(f"[engine] S1 graph speed-up over the per-round loop "
         f"{ms_s1['loop'] / ms_s1['graph']:.2f}x, over the eager engine "
         f"{ms_s1['engine'] / ms_s1['graph']:.2f}x; N = 1024: "
@@ -5035,7 +5201,7 @@ def phase_mesh_data2(card):
     for tag, (fed_fn, cfg) in cases.items():
         h, ms, peak, syncs, counts, recs, rows = md2_run(model, fed_fn(),
                                                          cfg)
-        exp = expected_counts("diversefl", cfg.rounds)
+        exp = expected_counts("diversefl", cfg.rounds, dense_blocks(cfg))
         if counts != exp or syncs != 1 or recs or rows is not None:
             raise AssertionError(f"[mesh-data2] meshless {tag}: launches "
                                  f"{counts} (want {exp}), {syncs} syncs, "
@@ -5060,7 +5226,9 @@ def phase_mesh_data2(card):
     for tag, (_, cfg) in cases.items():
         C, R = cfg.n_selected, 2
         split = tag == "S1 1024"
-        exp = expected_counts("diversefl", cfg.rounds)
+        # a split round's rank runs the client step on its rows' blocks
+        exp = expected_counts("diversefl", cfg.rounds,
+                              dense_blocks(cfg, C // R if split else None))
         D = sum(v.numel() for v in want[tag]["params"].values())
         # a split round gathers the rank's update rows and statistics
         rec_want = sorted([("all-gather", (C // R, D)),
@@ -5143,6 +5311,7 @@ def main():
     timings.update(phase_kernels_s2(card))
     timings.update(phase_kernels_s3(card))
     timings.update(phase_kernels_s4(card))
+    timings.update(phase_client_step(card))
     counts = phase_train()
     phase_card_vs_cpu()
     # slice 2's main path: Fig. 4's fltrust run (the median run and the

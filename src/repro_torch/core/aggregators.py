@@ -26,6 +26,24 @@ import torch
 
 
 
+def flat_unravel(params: Dict[str, torch.Tensor]
+                 ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+    """``unravel((D,)) -> params``: the inverse of one row of
+    :func:`flatten_updates` for leaves of ``params``' shapes (views of the
+    row, leaves in sorted key order)."""
+    keys = sorted(params)
+    shapes = [tuple(params[k].shape) for k in keys]
+    sizes = [math.prod(s) for s in shapes]
+
+    def unravel(vec: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out, off = {}, 0
+        for k, s, sz in zip(keys, shapes, sizes):
+            out[k] = vec[off:off + sz].reshape(s)
+            off += sz
+        return out
+    return unravel
+
+
 def flatten_updates(updates: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, Callable]:
     """Client-batched params dict (leading client dim N) -> (N, D) fp32
@@ -36,16 +54,7 @@ def flatten_updates(updates: Dict[str, torch.Tensor]
     n = updates[keys[0]].shape[0]
     flat = torch.cat([updates[k].reshape(n, -1).to(torch.float32)
                       for k in keys], dim=1)
-    shapes = [tuple(updates[k].shape[1:]) for k in keys]
-    sizes = [math.prod(s) for s in shapes]
-
-    def unravel(vec: torch.Tensor) -> Dict[str, torch.Tensor]:
-        out, off = {}, 0
-        for k, s, sz in zip(keys, shapes, sizes):
-            out[k] = vec[off:off + sz].reshape(s)
-            off += sz
-        return out
-    return flat, unravel
+    return flat, flat_unravel({k: updates[k][0] for k in keys})
 
 
 # ----------------------------------------------------------------------

@@ -111,18 +111,61 @@ def sgd_round_once(t: torch.Tensor, lr, g: torch.Tensor) -> torch.Tensor:
     return (t.float() - lr * g.float()).to(t.dtype)
 
 
+def write_update_rows(out: torch.Tensor, params: Params, batches,
+                      grad_fn: Callable, lr, l2: float = 0.0, *,
+                      clients: int, row0: int = 0,
+                      rows: Optional[int] = None) -> torch.Tensor:
+    """E = ``len(batches)`` local SGD steps of ``clients`` clients from the
+    start ``params`` θ0, and their update rows θ0 - θ_E written once into
+    rows ``row0 ..`` of the fp32 matrix ``out``, columns in the layout of
+    ``core.aggregators.flatten_updates``.  Every leaf of ``params`` splits
+    into ``clients`` rows along its leading axis (params every client
+    shares are a zero-stride ``expand``, nothing copied); ``rows`` (default
+    all) is how many of them are written, so a padded block writes only
+    its real clients.
+
+    ``grad_fn(θ, batch)`` is the gradient of the data loss alone, in the
+    params' dtype; the ridge ``0.5·l2·Σ‖p‖²`` enters the step itself as
+    ``l2·θ``, its exact gradient.  Each step is θ ← round(θ - lr·(g +
+    l2·θ)), computed in fp32 and rounded once to the params' dtype
+    (:func:`sgd_round_once`).  The last step and the difference run as one
+    pass, ``kernels.ops.client_step_rows``: the CUDA kernel on the card.
+    Returns ``out``."""
+    from ..kernels import ops as kops     # ops imports this module
+    keys = sorted(params)
+    theta = params
+    for batch in batches[:-1]:
+        g = grad_fn(theta, batch)
+        theta = {k: sgd_round_once(
+            theta[k], lr, g[k].float() + l2 * theta[k].float() if l2
+            else g[k]) for k in keys}
+    g = grad_fn(theta, batches[-1])
+
+    def split(t):
+        return t.reshape(clients, -1)
+    return kops.client_step_rows(
+        out, [split(g[k]) for k in keys], [split(params[k]) for k in keys],
+        [split(theta[k]) for k in keys], lr, l2, row0, rows)
+
+
 def guiding_update(params: Params, guide_batch, grad_fn: Callable, lr,
-                   E: int = 1) -> Params:
+                   E: int = 1, l2: float = 0.0) -> Params:
     """Δ̃ = θ - SGD_E(θ; M⁰): E gradient-descent steps on the enclave
     sample, mirroring the client's local optimizer (plain SGD, same lr,
     same E) per Algorithm 1.  ``grad_fn(params, batch) -> grads``; with
     client-batched params (leading client axis) and a matching batch the
-    guides of all clients come out of one call."""
-    theta = params
-    for _ in range(E):
-        g = grad_fn(theta, guide_batch)
-        theta = {k: sgd_round_once(theta[k], lr, g[k]) for k in theta}
-    return {k: params[k].float() - theta[k].float() for k in params}
+    guides of all clients come out of one call.  ``l2`` is a ridge term
+    that ``grad_fn`` leaves out (:func:`write_update_rows`, which computes
+    the steps: one row of all the params).  Returns fp32 leaves of the
+    params' shapes."""
+    keys = sorted(params)
+    sizes = [params[k].numel() for k in keys]
+    dev = params[keys[0]].device
+    out = torch.empty((1, sum(sizes)), dtype=torch.float32, device=dev)
+    write_update_rows(out, params, [guide_batch] * E, grad_fn, lr, l2,
+                      clients=1)
+    parts = dict(zip(keys, out[0].split(sizes)))
+    return {k: parts[k].reshape(params[k].shape) for k in params}
 
 
 # ----------------------------------------------------------------------

@@ -5,8 +5,10 @@ tensors (a pytree of tuples, lists and dicts; ``None`` leaves pass
 through) to a multiple of ``chunk`` with copies of the first rows and
 cuts it into ``(k, chunk, ...)`` blocks.  ``chunked_vmap`` applies a
 function to each block and concatenates the results with the padding
-rows dropped; the streaming fold (``fl/streaming.py``) sweeps the same
-blocks, folding each into an O(D) state instead.  One partition
+rows dropped; ``chunked_rows`` hands each block to a function that
+writes its real rows in place (the round's update and guide rows); the
+streaming fold (``fl/streaming.py``) sweeps the same blocks, folding each
+into an O(D) state instead.  One partition
 definition keeps the two sweeps row-aligned, which the bitwise
 streaming == dense contract depends on.
 
@@ -159,3 +161,26 @@ def chunked_vmap(fn: Callable, args: tuple, chunk: Optional[int] = None):
     if isinstance(first, dict):
         return {key: torch.cat([o[key] for o in outs])[:C] for key in first}
     return torch.cat(outs)[:C]
+
+
+def chunked_rows(fn: Callable, args: tuple, chunk: Optional[int] = None
+                 ) -> None:
+    """``fn(*block_args, row0, rows)`` for each (chunk, ...) block of
+    :func:`pad_to_blocks` over the shared leading client axis C of
+    ``args`` (one call on all of them for ``chunk=None`` or ``chunk >=
+    C``): block b holds rows ``[row0, row0 + chunk)``, ``row0 = b·chunk``,
+    of which ``rows = min(chunk, C - row0)`` are real clients.  ``fn``
+    writes the outputs of those ``rows`` clients in place (the round's
+    update or guide rows ``row0 ..``), so no per-block output is kept or
+    concatenated."""
+    leaves = tree_leaves(args)
+    if not leaves:
+        raise ValueError("chunked_rows needs at least one tensor argument")
+    C = leaves[0].shape[0]
+    if chunk is None or chunk >= C:
+        fn(*args, 0, C)
+        return
+    blocks, k, C = pad_to_blocks(args, chunk)
+    for b in range(k):
+        row0 = b * chunk
+        fn(*tree_map(lambda x, b=b: x[b], blocks), row0, min(chunk, C - row0))

@@ -30,12 +30,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..core import aggregators as agg
-from ..core.aggregators import flatten_updates
-from ..core.diversefl import DiverseFLConfig, criterion_logs, guiding_update
+from ..core.diversefl import (DiverseFLConfig, criterion_logs,
+                              write_update_rows)
 from ..core.tee import Enclave
 from ..device import DeviceLike
 from ..kernels import ops as kops
-from .chunking import chunked_vmap
+from .chunking import chunked_rows
 from .compression import quantize_tree
 from .telemetry import AuditLog
 
@@ -274,19 +274,23 @@ class SecureServer:
     def compute_guides(self, params, grad_fn, lr, E: int = 1,
                        select: Optional[torch.Tensor] = None,
                        client_chunk: Optional[int] = None,
-                       codec=None, like=None) -> torch.Tensor:
+                       codec=None, like=None,
+                       l2: float = 0.0) -> torch.Tensor:
         """Δ̃_j from unsealed samples only — the sole guide-data path.
 
         ``params`` are the global (unbatched) params; ``grad_fn`` must
-        accept client-batched params.  ``select`` restricts to the round's
-        participating clients (an index tensor).  ``client_chunk`` bounds
-        how many guides are computed at once (``fl/chunking.chunked_vmap``),
-        so Step 3 holds O(chunk) guides, not O(C).  ``codec`` (an
+        accept client-batched params.  ``l2`` is a ridge term ``grad_fn``
+        leaves out, added in the step (``core.diversefl.
+        write_update_rows``, which writes each guide's row once).
+        ``select`` restricts to the round's participating
+        clients (an index tensor).  ``client_chunk`` bounds how many guides
+        are computed at once (``fl/chunking.chunked_rows``), so Step 3
+        holds O(chunk) per-client gradients, not O(C).  ``codec`` (an
         ``fl/compression.Codec``) quantize-dequantizes each guide per
-        tensor before the flattening, so that a compressed run compares
-        quantized updates against equally quantized guides; a lossless
-        codec (or None) changes nothing.  Returns the flat (C, D) fp32
-        guide matrix, columns in the layout of
+        tensor, in place on each leaf's columns of its rows, so that a
+        compressed run compares quantized updates against equally
+        quantized guides; a lossless codec (or None) changes nothing.
+        Returns the flat (C, D) fp32 guide matrix, columns in the layout of
         ``core.aggregators.flatten_updates``.  On a model axis > 1
         ``params`` are the rank's tiles and ``like`` the whole params'
         shapes: the guides are the tiles', (C, D_s), each quantised as its
@@ -294,28 +298,49 @@ class SecureServer:
         gx, gy = self.guide_batches()
         if select is not None:
             gx, gy = gx[select], gy[select]
+        lossy = codec is not None and not codec.lossless
+        cols, off = {}, 0
+        for k in sorted(params):
+            cols[k] = (off, params[k].numel())
+            off += params[k].numel()
+        G = torch.empty((gx.shape[0], off), dtype=torch.float32,
+                        device=gx.device)
 
-        def flat_guides(x, y):
+        def guide_rows(x, y, row0, rows):
             c = x.shape[0]
-            batched = {k: v.unsqueeze(0).expand((c,) + tuple(v.shape))
-                       for k, v in params.items()}
-            guides = guiding_update(batched, (x, y), grad_fn, lr, E)
-            if codec is not None:
-                # per tensor, before the ravel: the int8 blocks follow
-                # tensor boundaries, as the reference's do
-                guides = quantize_tree(codec, guides, like=like)
-            return flatten_updates(guides)[0]
-        return chunked_vmap(flat_guides, (gx, gy), client_chunk)
+            start = {k: v.unsqueeze(0).expand((c,) + tuple(v.shape))
+                     for k, v in params.items()}
+            write_update_rows(G, start, [(x, y)] * E, grad_fn, lr, l2,
+                              clients=c, row0=row0, rows=rows)
+            if lossy:
+                # per tensor, on each leaf's columns: the int8 blocks follow
+                # tensor boundaries, as the reference's do.  In the params'
+                # order, the order of quantize_tree's gathers on a model axis
+                blk = G[row0:row0 + rows]
+                parts = {}
+                for k in params:
+                    a, n = cols[k]
+                    parts[k] = blk[:, a:a + n].reshape(
+                        (rows,) + tuple(params[k].shape))
+                for k, q in quantize_tree(codec, parts, like=like).items():
+                    a, n = cols[k]
+                    blk[:, a:a + n] = q.reshape(rows, n)
+        chunked_rows(guide_rows, (gx, gy), client_chunk)
+        return G
 
     def compute_root_update(self, params, grad_fn, lr, E: int, root_x,
-                            root_y) -> torch.Tensor:
+                            root_y, l2: float = 0.0) -> torch.Tensor:
         """FLTrust's server-side root direction: the same Step-3 SGD on the
-        server's root dataset, run as one pseudo-client.  Returns the flat
-        (D,) fp32 update, columns in the layout of ``flatten_updates``."""
+        server's root dataset, run as one pseudo-client through the guides'
+        row writer.  Returns the flat (D,) fp32 update, columns in the
+        layout of ``flatten_updates``."""
         batched = {k: v.unsqueeze(0) for k, v in params.items()}
-        root = guiding_update(batched, (root_x.unsqueeze(0),
-                                        root_y.unsqueeze(0)), grad_fn, lr, E)
-        return flatten_updates(root)[0][0]
+        out = torch.empty((1, sum(v.numel() for v in params.values())),
+                          dtype=torch.float32, device=root_x.device)
+        write_update_rows(out, batched, [(root_x.unsqueeze(0),
+                                          root_y.unsqueeze(0))] * E,
+                          grad_fn, lr, l2, clients=1)
+        return out[0]
 
     # --- Steps 4-5: criterion + aggregation ---------------------------
     @staticmethod

@@ -48,17 +48,17 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..core.aggregators import flatten_updates
+from ..core.aggregators import flat_unravel
 from ..core.attacks import (UPDATE_ATTACKS, AttackConfig, attack_update,
                             flip_labels, make_byzantine_mask, poison_backdoor)
-from ..core.diversefl import DiverseFLConfig, sgd_round_once
+from ..core.diversefl import DiverseFLConfig, write_update_rows
 from ..data.pipeline import FederatedData
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops as kops
 from ..sharding.api import (BlockedLayout, client_split, gather_clients,
                             model_group, model_index, model_shard_count)
 from . import telemetry
-from .chunking import chunked_vmap, tree_leaves, tree_map
+from .chunking import chunked_rows, tree_leaves, tree_map
 from .compression import available_codecs, encode_with_feedback, get_codec
 from .faults import (FaultConfig, corrupt_updates, draw_faults,
                      init_async_state, make_cohort_chain,
@@ -520,6 +520,14 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
     update, ``guides``, before the first; the block's fold follows its
     ``aggregate`` mark), and the landed stragglers' guides as ``guides``.
 
+    Every client's update row and every guide's is written once, in place,
+    by the client step (``core.diversefl.write_update_rows``: the model's
+    data-loss gradient, then the last SGD step with its ridge term and the
+    difference from the start in one pass, the CUDA kernel
+    ``client_step_rows`` on the card): the dense path into the round's
+    (C, D) matrices block by block, the streaming path into each block's
+    (chunk, D) rows, the straggler slab into its (B, D) rows.
+
     The body exposes ``streaming`` (the rule streams), ``streaming_fallback``
     (why it does not, when streaming was asked for), ``lossy``, ``codec``,
     ``async_mode`` and ``client_rows``."""
@@ -562,22 +570,30 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                             reason=streaming_fallback)
     if entry.needs_guides:
         fed.server.guide_batches()           # unseal once, before round 1
+    l2 = cfg.l2
 
     def grad_fn(params, batch):
-        return model.grad(params, batch, cfg.l2)
+        """The data loss's gradient: the ridge enters the step itself."""
+        return model.grad(params, batch, 0.0)
 
-    def client_update(params, xs, ys, lr):
-        """E local SGD steps of c clients at once: xs (c, E, m, ...) ->
-        the client-batched update dict θ - θ_E in fp32, each step rounded
-        once to the params' dtype (``sgd_round_once``)."""
+    def client_update(params, xs, ys, lr, out, row0=0, rows=None):
+        """E local SGD steps of c clients at once from the shared params:
+        xs (c, E, m, ...); the update rows θ - θ_E, fp32, each step
+        rounded once to the params' dtype, written into rows ``row0 ..``
+        of ``out`` (the first ``rows`` clients; default all)."""
         c = xs.shape[0]
         start = {k: v.unsqueeze(0).expand((c,) + tuple(v.shape))
                  for k, v in params.items()}
-        theta = start
-        for e in range(E):
-            g = grad_fn(theta, (xs[:, e], ys[:, e]))
-            theta = {k: sgd_round_once(theta[k], lr, g[k]) for k in theta}
-        return {k: start[k].float() - theta[k].float() for k in start}
+        write_update_rows(out, start,
+                          [(xs[:, e], ys[:, e]) for e in range(E)], grad_fn,
+                          lr, l2, clients=c, row0=row0, rows=rows)
+        return out
+
+    def update_matrix(params, rows):
+        """An uninitialised (rows, D) fp32 matrix for the rows of the
+        params' (or tiles') flat layout."""
+        return torch.empty((rows, sum(v.numel() for v in params.values())),
+                           dtype=torch.float32, device=dev)
 
     def apply_update_attacks(U, byz_rows, noise_rows, scen):
         """One per-row attack definition for the dense (C, D) matrix, the
@@ -706,10 +722,12 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 yb = torch.where(rbyz[:, None, None], yp.reshape(yb.shape), yb)
             logs = {"byz": byz, "sel": sel}
             if stream_entry is None:
-                # ---- Step 2: local SGD, client_chunk clients at a time ----
-                updates = chunked_vmap(
-                    lambda xs, ys: client_update(params, xs, ys, lr),
-                    (xb, yb), chunk)
+                # ---- Step 2: local SGD, client_chunk clients at a time,
+                # each block's rows written into U in place ----
+                U = update_matrix(params, n_r)
+                chunked_rows(
+                    lambda xs, ys, row0, rows: client_update(
+                        params, xs, ys, lr, U, row0, rows), (xb, yb), chunk)
 
         def root_update():
             """FLTrust's root update, the server's reference update: in
@@ -718,7 +736,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 return None
             with telemetry.phase("guides", dev):
                 return fed.server.compute_root_update(
-                    params, grad_fn, lr, E, fed.root_x, fed.root_y)
+                    params, grad_fn, lr, E, fed.root_x, fed.root_y, l2=l2)
 
         if stream_entry is not None:
             # ---- Steps 2-5, streaming: fold blocks into an O(D) state ----
@@ -746,8 +764,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 stream_pods=cfg.pods)
             rule = fed.server.streaming_aggregator(cfg.aggregator, ctx)
             if layout is None:
-                _, unravel = flatten_updates(
-                    {k: v.unsqueeze(0) for k, v in params.items()})
+                unravel = flat_unravel(params)
                 d = D
             else:
                 d = layout.L
@@ -770,9 +787,9 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 else:
                     xs, ys, byz_b, sel_b, noise_b = blk
                 with telemetry.phase("local_sgd", dev):
-                    upd = client_update(params, xs, ys, lr)
+                    U_blk = client_update(params, xs, ys, lr,
+                                          update_matrix(params, xs.shape[0]))
                 with telemetry.phase("update_rows", dev):
-                    U_blk, _ = flatten_updates(upd)
                     if update_attack:
                         if gaussian and noise_b is None:
                             noise_b = draw_noise(generator, U_blk.shape[0], D)
@@ -804,7 +821,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                     with telemetry.phase("guides", dev):
                         G_blk = fed.server.compute_guides(
                             params, grad_fn, lr, E, select=sel_b,
-                            codec=wire, like=like)
+                            codec=wire, like=like, l2=l2)
                         ctx_blk["guide"] = G_blk if layout is None \
                             else layout.local_rows(G_blk, srow)
                 # the fold of the block follows in stream_aggregate
@@ -826,7 +843,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 if entry.needs_guides:
                     with telemetry.phase("guides", dev):
                         G_land = fed.server.compute_guides(
-                            params, grad_fn, lr, E, select=land_cid)
+                            params, grad_fn, lr, E, select=land_cid, l2=l2)
                         land_ctx["guide"] = G_land if layout is None \
                             else layout.local_rows(G_land, srow)
                 extra_state, stale_logs = rule.update_block(
@@ -852,7 +869,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
             new_params = apply_delta(params, unravel(delta))
         else:
             with telemetry.phase("update_rows", dev):
-                U, unravel = flatten_updates(updates)
+                unravel = flat_unravel(params)
 
                 # ---- update-level attacks ----
                 if update_attack:
@@ -874,7 +891,7 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 with telemetry.phase("guides", dev):
                     G = fed.server.compute_guides(
                         params, grad_fn, lr, E, select=rsel,
-                        client_chunk=chunk, codec=wire)
+                        client_chunk=chunk, codec=wire, l2=l2)
             root = root_update()
             with telemetry.phase("aggregate", dev):
                 stats = None
@@ -931,8 +948,8 @@ def make_round_body(model: SmallModel, fed: Federation, cfg: FLConfig):
                 free_rank = free.to(torch.int64).cumsum(0) - 1
                 take = free & (free_rank < ns)
                 src = order[free_rank.clamp(0, N - 1)]
-                U_s, _ = flatten_updates(
-                    client_update(params, xb[src], yb[src], lr))
+                U_s = client_update(params, xb[src], yb[src], lr,
+                                    update_matrix(params, B))
                 if update_attack:
                     if gaussian and slab_noise is None:
                         slab_noise = draw_noise(generator, B, D)

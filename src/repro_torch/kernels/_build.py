@@ -31,7 +31,8 @@ SOURCES = {"similarity": "similarity.cu", "masked_agg": "masked_agg.cu",
            "robust_agg": "robust_agg.cu", "dequant_fold": "dequant_fold.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_bf16": "flash_attention_bf16.cu",
-           "mamba_scan": "mamba_scan.cu", "phase_mark": "phase_mark.cu"}
+           "mamba_scan": "mamba_scan.cu", "phase_mark": "phase_mark.cu",
+           "client_step": "client_step.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core.diversefl import DiverseFLConfig, diversefl_mask
+from .client_step import client_step_rows_cuda, client_step_rows_plain
 from .dequant_fold import dequant_fold_update_cuda, dequant_fold_update_plain
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .mamba_scan import mamba_scan_cuda, mamba_scan_plain
@@ -29,7 +30,8 @@ KERNELS = {"similarity_stats": similarity_cuda,
            "robust_aggregate": robust_agg_cuda,
            "dequant_fold_update": dequant_fold_update_cuda,
            "flash_attention": flash_attention_cuda,
-           "mamba_scan": mamba_scan_cuda}
+           "mamba_scan": mamba_scan_cuda,
+           "client_step_rows": client_step_rows_cuda}
 
 
 def _route(t: torch.Tensor, name: str, *operands: torch.Tensor) -> bool:
@@ -111,6 +113,21 @@ def diversefl_step45(u: torch.Tensor, g: Optional[torch.Tensor],
     dot, zz, gg = stats.unbind(1)
     mask = diversefl_mask(dot, zz, gg, cfg)
     return masked_aggregate(u, mask), mask, (dot, zz, gg)
+
+
+def client_step_rows(out: torch.Tensor, grads, theta0, thetap, lr,
+                     l2: float = 0.0, row0: int = 0,
+                     rows: Optional[int] = None) -> torch.Tensor:
+    """One local SGD step's update rows of c clients, written once into
+    rows ``row0 ..`` of the fp32 matrix ``out`` (``kernels/client_step``):
+    leaf lists of (c, ...) gradients, start params θ0 and step params θp
+    (a zero-stride client axis for shared params) -> ``out``.  The CUDA
+    kernel takes fp32 or bf16 params and refuses any other type."""
+    if _route(out, "client_step_rows", *grads, *theta0, *thetap):
+        return client_step_rows_cuda(out, grads, theta0, thetap, lr, l2,
+                                     row0, rows)
+    return client_step_rows_plain(out, grads, theta0, thetap, lr, l2, row0,
+                                  rows)
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

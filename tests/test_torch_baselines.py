@@ -131,7 +131,8 @@ def test_ops_send_cpu_tensors_to_the_new_plain_versions():
                                         "robust_aggregate",
                                         "dequant_fold_update",
                                         "flash_attention",
-                                        "mamba_scan"}
+                                        "mamba_scan",
+                                        "client_step_rows"}
     assert not any(ops.launch_counts().values())
     with pytest.raises(ValueError, match="unsupported device"):
         ops.robust_aggregate(torch.empty((2, 8), device="meta"))

@@ -17,6 +17,7 @@ from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro_torch.core.diversefl import DiverseFLConfig
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels.client_step import client_step_rows_plain
 from repro_torch.kernels.dequant_fold import dequant_fold_update_plain
 from repro_torch.kernels.masked_agg import masked_agg_cuda, masked_agg_plain
 from repro_torch.kernels.similarity import similarity_cuda, similarity_plain
@@ -92,13 +93,18 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
     scale, w, acc = torch.rand(6, 2), mask.float(), ut[0]
     assert torch.equal(ops.dequant_fold_update(q, scale, w, acc, 128),
                        dequant_fold_update_plain(q, scale, w, acc, 128))
+    th = [ut[0].unsqueeze(0).expand(6, 130)]
+    assert torch.equal(
+        ops.client_step_rows(torch.empty(6, 130), [gt], th, th, 0.1, 5e-4),
+        client_step_rows_plain(torch.empty(6, 130), [gt], th, th, 0.1, 5e-4))
     assert ops.launch_counts() == {"similarity_stats": 0,
                                    "masked_aggregate": 0,
                                    "masked_agg_update": 0,
                                    "robust_aggregate": 0,
                                    "dequant_fold_update": 0,
                                    "flash_attention": 0,
-                                   "mamba_scan": 0}
+                                   "mamba_scan": 0,
+                                   "client_step_rows": 0}
 
 
 def test_ops_reject_devices_without_a_kernel_or_plain_route():

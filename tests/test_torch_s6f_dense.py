@@ -103,14 +103,14 @@ def _cfg(agg, attack, codec, chunk, part, n=N, rounds=ROUNDS):
 
 class _Watch:
     """Counts what a rank builds and computes: the client rows of every
-    segment stack, of every local-SGD ``chunked_vmap`` and of every
+    segment stack, of every local-SGD ``chunked_rows`` and of every
     ``compute_guides``, and whether an ``all_gather`` ever takes a guide
     matrix's storage."""
 
     def __init__(self, fed):
         self.vmap_rows, self.guide_rows, self.guides = [], [], []
         self.stack_rows, self.guide_gathered = [], False
-        self._vmap, self._gather = sim.chunked_vmap, sharding.api.all_gather
+        self._vmap, self._gather = sim.chunked_rows, sharding.api.all_gather
         self._fed, self._guides_fn = fed, fed.server.compute_guides
         self._stacks = fed.data.segment_minibatches
 
@@ -136,13 +136,13 @@ class _Watch:
                    for g in self.guides):
                 self.guide_gathered = True
             return self._gather(x, group)
-        sim.chunked_vmap, sharding.api.all_gather = vmap, gather
+        sim.chunked_rows, sharding.api.all_gather = vmap, gather
         self._fed.server.compute_guides = guides
         self._fed.data.segment_minibatches = stacks
         return self
 
     def __exit__(self, *exc):
-        sim.chunked_vmap, sharding.api.all_gather = self._vmap, self._gather
+        sim.chunked_rows, sharding.api.all_gather = self._vmap, self._gather
         self._fed.server.compute_guides = self._guides_fn
         self._fed.data.segment_minibatches = self._stacks
         self.guides = []
