@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import math
 
+from bench.reference.int8 import QBLOCK
+
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "tf32": 495e12,
               "float32": 67e12}
@@ -38,22 +40,35 @@ def masked_agg_update(rows: int, d: int, dtype: str = "float32") -> tuple:
     return rows * d * _SIZE[dtype] + rows * 4 + 2 * d * 4, 2 * rows * d
 
 
+def dequant_fold_update(rows: int, d: int, qblock: int = QBLOCK) -> tuple:
+    """(n, D) int8 codes with their (n, ceil(D / qblock)) fp32 scales,
+    (n,) fp32 weights, the (D,) accumulator -> a new (D,) accumulator;
+    a decode multiply, a weight multiply and an add an element."""
+    nb = -(-d // qblock)
+    return rows * d + rows * nb * 4 + rows * 4 + 2 * d * 4, 3 * rows * d
+
+
 BYTES_OPS = {"similarity_stats": similarity_stats,
              "masked_aggregate": masked_aggregate,
-             "masked_agg_update": masked_agg_update}
+             "masked_agg_update": masked_agg_update,
+             "dequant_fold_update": dequant_fold_update}
 
 
 def calls(traffic: dict, d: int) -> dict:
     """{kernel: [(rows, D), ...]}: the launches of one DiverseFL round
-    (participation 1, an f32 codec).  The dense round computes the
+    (participation 1).  The dense round (f32 codec) computes the
     statistics and the masked mean over all N rows at once; the streaming
-    round folds blocks of ``client_chunk`` rows."""
+    round folds blocks of ``client_chunk`` rows, an f32 block with
+    ``masked_agg_update`` and an int8 block with ``dequant_fold_update``
+    (its statistics read the decoded fp32 rows)."""
     N = traffic["n_clients"]
     if not traffic["streaming"]:
         return {"similarity_stats": [(N, d)], "masked_aggregate": [(N, d)]}
     c = traffic.get("client_chunk") or N
     blocks = [(min(c, N - b0), d) for b0 in range(0, N, c)]
-    return {"similarity_stats": blocks, "masked_agg_update": blocks}
+    fold = "dequant_fold_update" if traffic.get("compression") == "int8" \
+        else "masked_agg_update"
+    return {"similarity_stats": blocks, fold: blocks}
 
 
 def round_least_s(kernel: str, traffic: dict, d: int) -> float:

@@ -28,6 +28,12 @@ _NORMS = ("final_norm", "ln1", "ln2")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
+# (config overrides, traffic overrides) of the CPU tests' tiny cells
+TINY = ({"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 2,
+         "head_dim": 16, "d_ff": 128, "vocab_size": 512, "window": 16},
+        {"n_clients": 4, "f": 1, "per_client": 8, "seq_len": 24,
+         "batch_size": 4, "n_test": 4})
+
 
 def model_config(config: dict):
     from repro_torch.models import ModelConfig

@@ -1,9 +1,10 @@
 """The paper's 3-NN (784-200-200-10) on MNIST-like class-template data.
 
-What the harness needs of a family: the program's model, the shapes and
-the benchmark-made weights, the map between the program's param names and
-the reference's leaves, the federated data, the plain reference, and the
-model FLOPs of a round.
+What the harness needs of a family (``bench/harness/spec.FAMILY_API``):
+the program's model, the shapes and the benchmark-made weights, the map
+between the program's param names and the reference's leaves, the
+federated data, the plain reference, the model FLOPs of a round, and
+``TINY``, the cut the CPU tests run its cells at.
 """
 from __future__ import annotations
 
@@ -12,6 +13,11 @@ import torch
 from bench.counts import flops
 from bench.harness.seeds import generator
 from bench.reference.mlp3 import LEAVES, MLP3
+
+# (config overrides, traffic overrides) of the CPU tests' tiny cells
+TINY = ({"hidden": 16},
+        {"n_clients": 16, "f": 3, "per_client": 10, "batch_size": 4,
+         "client_chunk": 4, "graph": False, "eval_every": 2, "n_test": 32})
 
 
 def program_model(config: dict, traffic: dict):

@@ -103,8 +103,9 @@ def main(argv=None) -> int:
                    help="seeds (among --seeds) that also read the control")
     p.add_argument("--fault-seeds", default="",
                    help="seeds (among --seeds) that also read the faults")
-    p.add_argument("--faults", default=",".join(faults.FAULTS),
-                   help="comma-separated faults to plant on --fault-seeds")
+    p.add_argument("--faults", default=None,
+                   help="comma-separated faults to plant on --fault-seeds "
+                        "(default: every fault the cell can have)")
     p.add_argument("--out", default=None, help="also append lines here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -114,14 +115,15 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cell = spec.load_cell(args.workload)
     dev = torch.device("cuda", 0)
+    kinds = faults.kinds(cell.traffic) if args.faults is None \
+        else [k for k in args.faults.split(",") if k]
 
     def ints(s):
         return [int(x) for x in s.split(",") if x]
     ctl, flt = set(ints(args.control_seeds)), set(ints(args.fault_seeds))
     for seed in ints(args.seeds):
         for line in readings(cell, seed, dev, control=seed in ctl,
-                             fault_kinds=[k for k in args.faults.split(",")
-                                          if k and seed in flt]):
+                             fault_kinds=kinds if seed in flt else []):
             line = {"workload": cell.name, **line}
             print(json.dumps(line), flush=True)
             if args.out:

@@ -13,6 +13,14 @@ program's outputs of those rounds (each round's per-client C1*C2, the
 per-leaf norms of the first round's and of all of their moves of the
 params) are kept; after the window the program's state is freed and the
 reference follows the same rounds from the same inputs.
+
+Under a lossy codec the clients' error-feedback residuals carry from
+call to call as they carry through the rounds of one run: each call
+hands the engine the params with the residuals the rounds before left.
+``run_training`` returns the params alone; an eager run updates the
+residual handed in, in place, and a graphed run its captured round's
+static copy, which the harness hands back in the next call (the engine
+then copies nothing).
 """
 from __future__ import annotations
 
@@ -134,7 +142,7 @@ def c1c2_gaps(prog: List, ref: List, stat: str = "max") -> float:
 # what the plain reference models (``bench/reference/fl_round.py``); a
 # traffic mix that asks for anything else is refused before set-up rather
 # than held against a reference of another round
-MODELLED = {"aggregator": ("diversefl",), "compression": ("f32",),
+MODELLED = {"aggregator": ("diversefl",), "compression": ("f32", "int8"),
             "attack": ("sign_flip", "none")}
 # every key a traffic file may hold: each is read by the harness or a
 # family, and changes the program's round only in ways the reference
@@ -164,6 +172,34 @@ def check_modelled(traffic: dict, cfg) -> None:
     if got != (ref.eps1, ref.eps2, ref.eps3):
         raise ValueError(f"the program's DiverseFL thresholds {got} are not "
                          f"the reference's {(ref.eps1, ref.eps2, ref.eps3)}")
+
+
+def wire_groups(prog: dict, leaves: dict) -> tuple:
+    """The reference's ``leaves`` as a client's flat update row lays them
+    out: one group for each of the program's params ``prog``, in sorted
+    name order (the program's ``flatten_updates``), each group's leaves
+    in their order inside that param.  ``leaves`` are the family's
+    ``from_program`` of ``prog``, views of its params, so each is placed
+    by its storage and offset."""
+    groups, placed = [], 0
+    for name in sorted(prog):
+        p = prog[name]
+        ptr, lo = p.untyped_storage().data_ptr(), p.storage_offset()
+        inside = sorted((v.storage_offset(), k) for k, v in leaves.items()
+                        if v.untyped_storage().data_ptr() == ptr
+                        and lo <= v.storage_offset() < lo + p.numel())
+        if sum(leaves[k].numel() for _, k in inside) != p.numel():
+            raise ValueError(f"program param {name!r} is not laid out by "
+                             f"the family's leaves (from_program returns "
+                             f"no views of it), so the reference cannot "
+                             f"lay out its rows as the program's codec "
+                             f"does")
+        groups.append(tuple(k for _, k in inside))
+        placed += len(inside)
+    if placed != len(leaves):
+        raise ValueError("a leaf of the family's from_program is no view "
+                         "of one program param")
+    return tuple(groups)
 
 
 def fl_config(traffic: dict):
@@ -239,14 +275,16 @@ class FLCell:
         lr = float(t["lr"])
         self.lr1 = torch.full((1,), lr, device=dev)
         self.lrT = torch.full((self.T,), lr, device=dev)
+        # the clients' residuals under a lossy codec, zero at the start
+        self.resid = self.engine.init_carry(p0)[1] if self.engine.lossy \
+            else None
         # the rounds the reference follows, one segment each
         self.states, self.c1c2 = [], []
         self.failed_rounds = 0
         p = p0
         for r in range(self.k):
             self.states.append(self.rgen.get_state())
-            p, _, metrics, _ = self.engine.run_training(p, self.rgen,
-                                                        self.lr1, self.scen)
+            p, metrics = self.run(p, self.lr1)
             host = host_sync(metrics)
             self.c1c2.append(host["c1c2"][0])
             if r == 0:
@@ -262,10 +300,26 @@ class FLCell:
         for _ in range(self.warm):
             self.segment()
 
+    def run(self, params, lrs):
+        """``len(lrs)`` rounds through ``run_training`` from ``params`` and,
+        under a lossy codec, the residuals the rounds before left: (the
+        new params, the device metrics)."""
+        carry = params if self.resid is None else (params, self.resid)
+        params, _, metrics, _ = self.engine.run_training(
+            carry, self.rgen, lrs, self.scen)
+        if self.resid is not None and self.engine.graph:
+            captured = getattr(self.engine, "_g", None) or {}
+            if "carry" not in captured:
+                raise RuntimeError("the engine keeps its captured round's "
+                                   "carry under another name: the harness "
+                                   "cannot hand the clients' residuals to "
+                                   "the next call")
+            self.resid = captured["carry"][1]
+        return params, metrics
+
     def segment(self) -> None:
         """One eval segment through the engine and its host sync."""
-        self.params, _, metrics, _ = self.engine.run_training(
-            self.params, self.rgen, self.lrT, self.scen)
+        self.params, metrics = self.run(self.params, self.lrT)
         host = self.host_sync(metrics)
         if not all(bool(torch.isfinite(torch.as_tensor(v)).all())
                    for v in host.values()):
@@ -293,15 +347,19 @@ class FLCell:
 
     def traced_window(self, segments: int):
         """``segments`` segments under the profiler, inside the
-        ``bench.window`` range."""
+        ``bench.window`` range, with the program's flight recorder on."""
+        from repro_torch.fl import telemetry
         self.setup_peak = memory_peak(self.device)
-        with tr.profiled(self.device) as prof:
+        ends = []
+        with telemetry.recording() as rec, tr.profiled(self.device) as prof:
             with torch.profiler.record_function(tr.WINDOW):
                 for _ in range(segments):
                     self.segment()
+                    ends.append(len(rec.records))
         self.rounds = segments * self.T
         peak = memory_peak(self.device)
-        return tr.read(prof, self.rounds), peak
+        return tr.read(prof, self.rounds,
+                       tr.recorded(rec.records, ends, self.T)), peak
 
     def finite_params(self) -> bool:
         return all(bool(torch.isfinite(v.float()).all())
@@ -309,7 +367,7 @@ class FLCell:
 
     def release(self) -> None:
         """Free the program's state before the reference runs."""
-        for name in ("engine", "fed", "model", "params", "scen"):
+        for name in ("engine", "fed", "model", "params", "resid", "scen"):
             self.__dict__.pop(name, None)
         gc.collect()
         if self.device.type == "cuda":
@@ -320,18 +378,28 @@ class FLCell:
         """The plain reference over the followed rounds from the same
         inputs, each round's minibatches drawn from the round generator at
         ``states[r]``, the program's draw at that round: {"c1c2": [...],
-        "norms1": {...}, "normsk": {...}}."""
+        "norms1": {...}, "p1": {...}, "normsk": {...}, "resid": the
+        clients' residuals after them (None without a lossy codec)}."""
         t, dev, fam = self.traffic, self.device, self.fam
         data = fam.make_data(self.config, t, self.seed, dev)
         enclave, _, byz = draw_ids(t, self.seed, dev)
         ref = fam.reference(self.config)
-        p0 = fam.leaves(fam.make_params(self.config, self.seed, dev))
+        params = fam.make_params(self.config, self.seed, dev)
+        p0 = fam.leaves(params)
         N, E, m = t["n_clients"], t["local_steps"], t["batch_size"]
         rows = torch.arange(N, device=dev)[:, None]
         gx, gy = data["x"][rows, enclave], data["y"][rows, enclave]
         rs = RoundSpec(lr=float(t["lr"]), l2=float(t["l2"]), local_steps=E,
                        attack=t["attack"])
         feat = tuple(data["x"].shape[2:])
+        codec = {"codec": t["compression"]}
+        if t["compression"] != "f32":
+            model = fam.program_model(self.config, t)
+            prog = fam.to_program(params, model)
+            wire = wire_groups(prog, fam.from_program(prog, model))
+            d = sum(p.numel() for p in prog.values())
+            del model, prog
+            codec.update(wire=wire, resid=torch.zeros((N, d), device=dev))
         p, c1c2, norms1 = p0, [], None
         for r in range(self.k):
             g = torch.Generator(device=dev)
@@ -341,12 +409,12 @@ class FLCell:
             xs = data["x"][rows, idx].reshape((N, E, m) + feat)
             ys = data["y"][rows, idx].reshape(N, E, m)
             p, c, _ = diversefl_round(ref, p, xs, ys, gx, gy, byz, rs,
-                                      Precision(prec))
+                                      Precision(prec), **codec)
             c1c2.append(c.cpu())
             if r == 0:
                 norms1, p1 = leaf_norms(p0, p), p
         return {"c1c2": c1c2, "norms1": norms1, "p1": p1,
-                "normsk": leaf_norms(p0, p)}
+                "normsk": leaf_norms(p0, p), "resid": codec.get("resid")}
 
     def program_outputs(self) -> dict:
         return {"c1c2": self.c1c2, "norms1": self.norms1, "p1": self.p1,

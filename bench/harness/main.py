@@ -71,7 +71,9 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         extra = {"busy_s": tr.busy_us(t) / 1e6, "window_s": t.window_us / 1e6}
         res["breakdown"] = tr.breakdown(t)
         log(f"traced {t.rounds} rounds: {len(t.kernels)} kernels, "
-            f"{len(t.device)} device ops, window {extra['window_s']:.6f} s")
+            f"{len(t.marks)} phase marks, {len(t.device)} device ops, "
+            f"{len(t.events)} recorded events, window "
+            f"{extra['window_s']:.6f} s")
     else:
         t_window = time.perf_counter()
         w = run.window(seconds)

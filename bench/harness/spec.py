@@ -10,7 +10,8 @@ file of its own, found by its name:
   warm segments before the window, the segments the traced run profiles,
   and each compared number's limit;
 * ``bench/families/<family>.py``: how the family's model, weights and
-  data are made and which plain reference follows it;
+  data are made, which plain reference follows it, and its tiny cut for
+  the CPU tests (:data:`FAMILY_API`);
 * ``bench/metrics/<metric>.py``: the reader of a per-layer metric.
 
 A later change adds a cell, a configuration, a traffic mix, a family or a
@@ -27,6 +28,12 @@ from typing import Dict, Optional
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
+
+# what the harness takes from a family file: these functions, and
+# ``TINY``, its (config overrides, traffic overrides) for the CPU tests
+FAMILY_API = ("program_model", "param_shapes", "make_params", "to_program",
+              "leaves", "from_program", "make_data", "reference",
+              "model_flops")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,15 +6,24 @@ profiler's events into a :class:`Trace`: the device's operations
 correlation id), the host's ranges and operators, and the window, the
 ``bench.window`` range the harness places around the profiled segments.
 Times are in microseconds on the profiler's one clock.
+
+The program's phase marks (the empty kernels ``fl_phase_<phase>``) are
+device operations of the trace, but no work: :attr:`Trace.marks` holds
+them, and the kernel count, the busy time and the breakdown leave them
+out.  :attr:`Trace.events` holds what the program's flight recorder
+(``repro_torch.fl.telemetry``) recorded in the window: its events and
+spans, each with the segment and round it fell in.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import List, Optional, Tuple
 
 import torch
 
 WINDOW = "bench.window"
+MARK = re.compile(r"^fl_phase_(\w+)$")
 DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_KINDS = ("user_annotation", "cpu_op", "cuda_runtime", "cuda_driver",
               "python_function")
@@ -34,6 +43,29 @@ class Op:
 
 
 @dataclasses.dataclass
+class Event:
+    """One record of the program's flight recorder in the traced window:
+    ``type`` ``"event"`` (``kind`` its kind) or ``"span"`` (``kind`` its
+    name), ``meta`` its other fields, and where it fell: the window's
+    ``segment`` (0-based) and ``round``, the 1-based window round that
+    closes that segment (the host sees a segment's rounds as one
+    dispatch and one sync)."""
+    type: str
+    kind: str
+    meta: dict
+    segment: int
+    round: int
+
+
+def phase_of(op: Op) -> Optional[str]:
+    """The phase a mark kernel enters, None for any other operation."""
+    if op.kind != "kernel" or not op.name.startswith("fl_phase_"):
+        return None
+    m = MARK.match(_short(op.name))
+    return m.group(1) if m else None
+
+
+@dataclasses.dataclass
 class Trace:
     device: List[Op]            # kernels, copies and sets in the window
     launches: dict              # correlation id -> the launching call
@@ -41,14 +73,26 @@ class Trace:
     t0: float
     t1: float
     rounds: int
+    events: List[Event] = dataclasses.field(default_factory=list)
 
     @property
     def window_us(self) -> float:
         return self.t1 - self.t0
 
     @property
+    def marks(self) -> List[Op]:
+        """The phase marks among the device operations."""
+        return [o for o in self.device if phase_of(o)]
+
+    @property
+    def work(self) -> List[Op]:
+        """The device operations that are not marks."""
+        return [o for o in self.device if not phase_of(o)]
+
+    @property
     def kernels(self) -> List[Op]:
-        return [o for o in self.device if o.kind == "kernel"]
+        """The kernels that are not marks."""
+        return [o for o in self.work if o.kind == "kernel"]
 
     def ranges(self, name: str) -> List[Op]:
         return [o for o in self.host if o.kind == "user_annotation"
@@ -84,29 +128,66 @@ def _events(prof):
                  corr=int(args.get("correlation", -1)))
 
 
-def read(prof, rounds: int) -> Trace:
-    """The profiled window's trace: device operations clipped to the
-    ``bench.window`` range, host events that overlap it."""
-    ops = list(_events(prof))
+def recorded(records: List[dict], ends: List[int], every: int
+             ) -> List[Event]:
+    """The flight recorder's ``records`` of the window as events: record
+    i fell in the first segment s whose record count at its end,
+    ``ends[s]``, exceeds i."""
+    out, s = [], 0
+    for i, r in enumerate(records):
+        while s < len(ends) and i >= ends[s]:
+            s += 1
+        if s == len(ends):
+            break
+        kind = r["kind"] if r["type"] == "event" else r["name"]
+        meta = {k: v for k, v in r.items()
+                if k not in ("type", "kind", "name")}
+        out.append(Event(type=r["type"], kind=kind, meta=meta, segment=s,
+                         round=(s + 1) * every))
+    return out
+
+
+def read(prof, rounds: int, events: Optional[List[Event]] = None) -> Trace:
+    """The profiled window's trace (:func:`window_of` the profiler's
+    events) with the program's recorded ``events``."""
+    return window_of(list(_events(prof)), rounds, events)
+
+
+def window_of(ops: List[Op], rounds: int,
+              events: Optional[List[Event]] = None) -> Trace:
+    """The ``bench.window`` range's trace: the device operations launched
+    inside it, host events that overlap it.  A device operation belongs
+    to the window by the host call that launched it (matched by
+    correlation id; a graph's kernels by its launch), not by its device
+    time: the device's clock and the host's can disagree by tens of
+    microseconds, which would cut the window's last operations or take
+    in the first ones launched after it.  An operation whose launch the
+    trace lacks is placed by its device time."""
     wins = [o for o in ops if o.kind == "user_annotation"
             and o.name == WINDOW]
     if not wins:
         raise RuntimeError(f"the trace holds no {WINDOW!r} range")
     t0, t1 = wins[0].ts, wins[0].end
-    device = [o for o in ops if o.kind in DEVICE_KINDS
-              and o.end > t0 and o.ts < t1]
     launches = {o.corr: o for o in ops
                 if o.kind in ("cuda_runtime", "cuda_driver") and o.corr >= 0}
+
+    def inside(o):
+        call = launches.get(o.corr)
+        if call is not None:
+            return t0 <= call.ts < t1
+        return o.end > t0 and o.ts < t1
+    device = [o for o in ops if o.kind in DEVICE_KINDS and inside(o)]
     host = [o for o in ops if o.kind in HOST_KINDS
             and o.end > t0 and o.ts < t1]
     return Trace(device=device, launches=launches, host=host, t0=t0, t1=t1,
-                 rounds=rounds)
+                 rounds=rounds, events=list(events or []))
 
 
 def busy_intervals(trace: Trace) -> List[Tuple[float, float]]:
-    """The union of the device operations' intervals within the window."""
+    """The union of the device operations' intervals within the window,
+    marks left out."""
     spans = sorted((max(o.ts, trace.t0), min(o.end, trace.t1))
-                   for o in trace.device)
+                   for o in trace.work)
     out: List[Tuple[float, float]] = []
     for a, b in spans:
         if b <= a:
@@ -158,7 +239,7 @@ def breakdown(trace: Trace, top: int = 10) -> dict:
     """The device operations that took most time, and the longest idle
     gaps named by what the host was doing as each began."""
     by_name: dict = {}
-    for o in trace.device:
+    for o in trace.work:
         k = _short(o.name)
         by_name[k] = by_name.get(k, 0.0) + (min(o.end, trace.t1)
                                             - max(o.ts, trace.t0))

@@ -22,24 +22,19 @@ marks out of order, with fewer hand-offs than segments yet ending on
 one, or without one whole segment, splits nothing: :func:`split` returns
 None."""
 import bisect
-import re
+import itertools
 from typing import Dict, List, Optional, Tuple
 
-from bench.harness.trace import Trace, _short, busy_intervals
+from bench.harness.trace import Trace, busy_intervals, phase_of
 
-MARK = re.compile(r"^fl_phase_(\w+)$")
 ROUND = ("local_sgd", "update_rows", "guides", "aggregate")
 
 
 def marks(trace: Trace) -> List[Tuple[float, str]]:
     """(start, phase) of each mark that starts inside the window, in
     device order."""
-    out = []
-    for k in trace.kernels:
-        m = MARK.match(_short(k.name))
-        if m and trace.t0 <= k.ts < trace.t1:
-            out.append((k.ts, m.group(1)))
-    return sorted(out)
+    return sorted((k.ts, phase_of(k)) for k in trace.marks
+                  if trace.t0 <= k.ts < trace.t1)
 
 
 def _follows(a: str, b: str) -> bool:
@@ -89,27 +84,38 @@ def intervals(trace: Trace, ctx: Optional[dict] = None
     return out, rounds
 
 
-def _overlap(spans, a: float, b: float) -> float:
-    return sum(max(0.0, min(y, b) - max(x, a)) for x, y in spans)
+def _overlap(starts: List[float], ends: List[float], cum: List[float],
+             a: float, b: float) -> float:
+    """The part of [a, b) that sorted, disjoint intervals cover, from
+    their ``starts``, ``ends`` and the prefix sums ``cum`` of their
+    lengths: two bisections, not a pass over all of them."""
+    i = bisect.bisect_right(ends, a)
+    j = bisect.bisect_left(starts, b)
+    if i >= j:
+        return 0.0
+    return (cum[j] - cum[i] - max(0.0, a - starts[i])
+            - max(0.0, ends[j - 1] - b))
 
 
 def split(trace: Trace, ctx: Optional[dict] = None
           ) -> Optional[Tuple[Dict[str, dict], int]]:
     """Per phase: ``us`` (its share of the split window), ``busy_us`` (the
-    part in which a device operation runs) and ``kernels`` (the kernels
-    that start in it, marks left out); and the split window's rounds.
+    part in which a device operation other than a mark runs) and
+    ``kernels`` (the kernels that start in it, marks left out); and the
+    split window's rounds.
     None where nothing splits."""
     cut = intervals(trace, ctx)
     if cut is None:
         return None
     busy = busy_intervals(trace)
-    work = sorted(k.ts for k in trace.kernels
-                  if not MARK.match(_short(k.name)))
+    starts, ends = [a for a, _ in busy], [b for _, b in busy]
+    cum = list(itertools.accumulate((b - a for a, b in busy), initial=0.0))
+    work = sorted(k.ts for k in trace.kernels)
     out: Dict[str, dict] = {}
     for a, b, p in cut[0]:
         d = out.setdefault(p, {"us": 0.0, "busy_us": 0.0, "kernels": 0})
         d["us"] += b - a
-        d["busy_us"] += _overlap(busy, a, b)
+        d["busy_us"] += _overlap(starts, ends, cum, a, b)
         d["kernels"] += bisect.bisect_left(work, b) - \
             bisect.bisect_left(work, a)
     return out, cut[1]

@@ -1,4 +1,5 @@
-"""Device kernels launched in the profiled window, per round."""
+"""Device kernels launched in the profiled window, per round; the
+program's phase marks are no work and are left out."""
 
 
 def read(trace, ctx):

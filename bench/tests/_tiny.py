@@ -1,5 +1,6 @@
 """Each cell at tiny widths, for the CPU: the same files, families and
-code paths, with every size cut (no CUDA graph off the card).
+code paths, with every size cut as the cell's family file's ``TINY``
+says (no CUDA graph off the card).
 
 ``PARKED`` holds the entries of a cell whose parts stay under ``bench/``
 while ``BENCHMARK.json`` leaves it out (PERF.md, Open questions), so its
@@ -9,18 +10,6 @@ import dataclasses
 import json
 
 from bench.harness import spec
-
-TINY = {
-    "mlp3": ({"hidden": 16},
-             {"n_clients": 16, "f": 3, "per_client": 10, "batch_size": 4,
-              "client_chunk": 4, "graph": False, "eval_every": 2,
-              "n_test": 32}),
-    "decoder": ({"n_layers": 2, "d_model": 64, "n_heads": 4,
-                 "n_kv_heads": 2, "head_dim": 16, "d_ff": 128,
-                 "vocab_size": 512, "window": 16},
-                {"n_clients": 4, "f": 1, "per_client": 8, "seq_len": 24,
-                 "batch_size": 4, "n_test": 4}),
-}
 
 PARKED = {
     "configs": [{"name": "h2o-danube-1.8b-fl",
@@ -63,7 +52,7 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 
 def tiny(name: str, **limits) -> spec.Cell:
     cell = spec.load_cell(name, bench=BENCH)
-    conf, traffic = TINY[cell.family]
+    conf, traffic = spec.family(cell.family).TINY
     checks = dict(cell.checks)
     if limits:
         checks["limits"] = dict(checks["limits"], **limits)

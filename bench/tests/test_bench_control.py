@@ -4,8 +4,9 @@ limits: the reference at the next precision below the configuration's
 put in the program's place (TF32 for float32, fp8 for bfloat16, both
 emulated), and the program with the timed path broken underneath (a
 round that leaves the params unchanged, half of each batch left out, a
-statistic altered where the kernel produces it).  A cell on one chip has
-no exchange between chips to leave out."""
+statistic altered where the kernel produces it, and under a lossy codec
+the error feedback dropped).  A cell on one chip has no exchange between
+chips to leave out."""
 import dataclasses
 import time
 
@@ -15,6 +16,9 @@ from bench.harness import calibrate, faults, fl, main as hm
 from bench.tests._tiny import CELLS, tiny
 
 SEEDS = (101, 202)
+# each cell with each fault it can have
+PLANTED = [(name, fault) for name in CELLS
+           for fault in faults.kinds(tiny(name).traffic)]
 
 
 def _limits(name):
@@ -43,8 +47,8 @@ def test_control_fails(name, seed):
     assert not ok, checks
 
 
-@pytest.mark.parametrize("fault", faults.FAULTS)
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name,fault", PLANTED,
+                         ids=[f"{n}-{f}" for n, f in PLANTED])
 def test_planted_fault_fails_a_whole_run(name, fault, monkeypatch):
     """The harness's run with the fault planted under the timed path
     (set-up, window, reference, judgement) comes out not correct."""

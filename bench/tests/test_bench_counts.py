@@ -44,6 +44,10 @@ def test_attention_pairs():
     ("masked_aggregate", (23, 199_210), 5.709),
     ("masked_agg_update", (23, 199_210), 5.947),
     ("masked_agg_update", (1, 100_369_280), 359.53),
+    ("dequant_fold_update", (8, 199_210), 0.966),
+    ("dequant_fold_update", (64, 199_210), 4.401),
+    ("dequant_fold_update", (23, 2_000_000), 18.94),
+    ("dequant_fold_update", (1, 179_907_840), 485.01),
 ])
 def test_kernel_bounds_match_the_kernel_table(kernel, shape, bound_us):
     b, ops = kernels.BYTES_OPS[kernel](*shape)
@@ -58,3 +62,17 @@ def test_calls_per_round():
     c = kernels.calls(stream, 5)
     assert c["masked_agg_update"] == [(3, 5), (3, 5), (2, 5)]
     assert kernels.round_least_s("masked_aggregate", stream, 5) == 0
+    # the int8 stream folds its blocks with the dequantize-and-fold kernel
+    c8 = kernels.calls(dict(stream, compression="int8"), 5)
+    assert c8 == {"similarity_stats": [(3, 5), (3, 5), (2, 5)],
+                  "dequant_fold_update": [(3, 5), (3, 5), (2, 5)]}
+    assert kernels.round_least_s("masked_agg_update",
+                                 dict(stream, compression="int8"), 5) == 0
+
+
+def test_dequant_fold_bytes():
+    # one streamed block of mlp3-xdevice-int8: 64 rows of int8 codes, 1,557
+    # fp32 scales a row, 64 weights, the accumulator read and written
+    b, ops = kernels.dequant_fold_update(64, 199_210)
+    assert b == 64 * 199_210 + 64 * 1557 * 4 + 64 * 4 + 2 * 199_210 * 4
+    assert ops == 3 * 64 * 199_210

@@ -18,13 +18,39 @@ def test_the_cells_are_modelled(name):
 
 @pytest.mark.parametrize("key,value", [
     ("aggregator", "fltrust"), ("aggregator", "mean"),
-    ("compression", "int8"), ("compression", "bf16"),
-    ("attack", "gaussian")])
+    ("compression", "bf16"), ("attack", "gaussian")])
 def test_an_unmodelled_round_is_refused(key, value):
     cell = tiny("mlp3-xdevice")
     cell = dataclasses.replace(cell, traffic=dict(cell.traffic, **{key: value}))
     with pytest.raises(ValueError, match=f"traffic {key}="):
         fl.FLCell(cell, 1, "cpu")
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_int8_is_modelled_where_the_family_states_its_wire(streaming):
+    """The int8 uplink is modelled, streamed or dense, for every family:
+    the harness reads the leaves' order on the wire from the family's
+    own map (``from_program``'s leaves are views of the program's
+    params), one group a program param, its leaves in their place.  A map
+    that gives no views is refused."""
+    for name in ("mlp3-xdevice", "danube-silo"):
+        cell = tiny(name)
+        t = dict(cell.traffic, compression="int8", streaming=streaming)
+        fl.check_modelled(t, fl.fl_config(t))
+        fam = spec.family(cell.family)
+        model = fam.program_model(cell.config, t)
+        prog = fam.to_program(fam.make_params(cell.config, 1, "cpu"), model)
+        leaves = fam.from_program(prog, model)
+        wire = fl.wire_groups(prog, leaves)
+        assert sorted(k for grp in wire for k in grp) == sorted(leaves)
+        for grp, key in zip(wire, sorted(prog)):
+            assert sum(leaves[k].numel() for k in grp) == prog[key].numel()
+    wq = sorted(prog).index(next(k for k in prog if k.endswith("attn/wq")))
+    assert wire[wq] == tuple(f"wq.{i}"
+                             for i in range(cell.config["n_layers"]))
+    copies = {k: v.clone() for k, v in leaves.items()}
+    with pytest.raises(ValueError, match="lay out"):
+        fl.wire_groups(prog, copies)
 
 
 def test_a_key_nothing_reads_is_refused():

@@ -6,7 +6,7 @@ import time
 import pytest
 
 from bench.harness import main as hm, spec
-from bench.harness.trace import Op, Trace
+from bench.harness.trace import Op, Trace, busy_intervals
 from bench.metrics import _phases
 from bench.tests._tiny import CELLS, tiny
 
@@ -72,7 +72,8 @@ def test_a_gap_after_a_mark_counts_to_its_phase():
     parts, rounds = _phases.split(t)
     assert rounds == 1
     assert parts["eval"]["us"] == pytest.approx(40.0)
-    assert parts["eval"]["busy_us"] == pytest.approx(6.0)
+    # the kernel's 5 us; the eval mark's own 1 us is no work
+    assert parts["eval"]["busy_us"] == pytest.approx(5.0)
     assert parts["eval"]["kernels"] == 1
     assert parts["local_sgd"]["kernels"] == 1
 
@@ -179,3 +180,28 @@ def test_a_cpu_traced_run_reports_no_phase(name):
                       time.perf_counter())
     assert res["correct"] is True, res["checks"]
     assert not {f"{p}_ms" for p in PHASES} & set(res["metrics"])
+
+
+def test_a_phases_busy_time_is_the_plain_overlap():
+    """Each phase's busy time, taken by bisection over the busy
+    intervals, is the plain sum of their overlaps with its stretches."""
+    import random
+    rnd = random.Random(5)
+    ops, t = [], 0.0
+    for _ in range(3):
+        for p in PHASES:
+            ops.append(mark(p, t))
+            t += 1.0
+            for _ in range(rnd.randrange(0, 6)):
+                d = rnd.uniform(0.1, 4.0)
+                ops.append(kernel("k", t + rnd.uniform(-2.0, 2.0), d))
+                t += rnd.uniform(0.0, 3.0)
+    tr = trace(ops, t0=0.0, t1=t + 5.0, rounds=3)
+    parts, _ = _phases.split(tr)
+    busy = busy_intervals(tr)
+    want = {}
+    for a, b, p in _phases.intervals(tr)[0]:
+        want[p] = want.get(p, 0.0) + sum(
+            max(0.0, min(y, b) - max(x, a)) for x, y in busy)
+    assert {p: d["busy_us"] for p, d in parts.items()} == \
+        pytest.approx(want, abs=1e-9)
